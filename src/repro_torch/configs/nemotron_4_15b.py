@@ -1,0 +1,21 @@
+"""nemotron-4-15b [dense] — 32L d_model=6144 48H (GQA kv=8) d_ff=24576
+vocab=256000 — GQA, squared-ReLU FFN. [arXiv:2402.16819; unverified]
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="nemotron-4-15b",
+    family="dense",
+    n_layers=32,
+    d_model=6144,
+    n_heads=48,
+    n_kv_heads=8,
+    d_head=128,
+    d_ff=24576,
+    vocab_size=256000,
+    rope_theta=1e4,
+    rope_fraction=0.5,  # nemotron uses partial rotary
+    ffn_kind="relu2",
+    norm_kind="layernorm",
+    max_seq_len=4096,
+)
