@@ -8,21 +8,36 @@ Phases (each one fails the run with a non-zero exit; none is caught):
      from src/repro_torch/csrc (one nvcc per source, in parallel) and print
      the ``-Xptxas -v`` summary;
   2. hold each kernel against its plain PyTorch version on the same inputs,
-     TF32 off, at full-width lwm-7b shapes (H = KVH = 32, D = 128): K1 over a
-     ragged packed batch of ~8k tokens, K3 through full rings of 2 and 4
-     shards, K2 with B = 16 and contexts up to 4k at page_size 1 and 16;
-     plus small variants (glm4-width GQA, window, softcap, empty rows);
-  3. time each kernel, its plain version and (K1) the library call
-     `scaled_dot_product_attention` with the block-diagonal causal mask —
-     a yardstick only, never called by the port — against the least time
-     the card could take (bytes over 3.35 TB/s, operations over 989
-     TFLOP/s bf16);
+     TF32 off: K1-K3 at full-width lwm-7b shapes (H = KVH = 32, D = 128): K1
+     over a ragged packed batch of ~8k tokens, K3 through full rings of 2 and
+     4 shards, K2 with B = 16 and contexts up to 4k at page_size 1 and 16;
+     K4 at mixtral width (H 32 / KVH 8, D 128, bf16, S 6144, window 4096)
+     and zamba2 width (H = KVH = 32, D 80, S 4096); K5 at both widths with
+     B = 1 and 8k contexts, and at B = 16 with k_pos_offset > 0, a window
+     and empty rows; plus small variants (GQA, non-causal, window, softcap,
+     striped and unsorted positions, B > 1, f32, empty rows);
+  3. time each kernel, its plain version and (K1, K4) the library call
+     `scaled_dot_product_attention` with the same mask — a yardstick only,
+     never called by the port — against the least time the card could take
+     (bytes over 3.35 TB/s, operations over 989 TFLOP/s bf16);
   4. serve full-width, full-depth lwm-7b in bf16 (random weights drawn on
      the card from a seed) with 4 elastic instances: 8 requests of 512-2048
-     prompt tokens, 16 new tokens each; every kernel must be launched and no
-     serial prefill run;
+     prompt tokens, 16 new tokens each; K1, K2 and K3 must be launched and
+     no serial prefill run;
   5. token parity at full width and reduced depth (2 layers, f32): the
-     engine's greedy tokens equal the port's plain serial oracle exactly.
+     engine's greedy tokens equal the port's plain serial oracle exactly;
+  6. serve full-width mixtral-8x7b (moe) in bf16, cut to 16 of its 32 layers
+     (full depth is ~93 GB of bf16 weights; 16 layers are ~47 GB), through
+     the engine's serial path: 7 requests (6 prompts of 512-2048 tokens and
+     one of 5000, which the 4096-token window masks), 12 new tokens each;
+     K4 and K5 must be launched and K1-K3 not;
+  7. serve full-width, full-depth zamba2-2.7b (hybrid: 54 Mamba2 layers,
+     the shared attention block applied 9 times, head dim 80) in bf16 the
+     same way, 6 requests of 512-2048 tokens;
+  8. token parity of both serial families at full width and reduced depth
+     in f32 (mixtral 2 layers with a 4200-token prompt so the window bites;
+     zamba2 one superblock): the engine's tokens equal the port's plain
+     serial oracle exactly.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -46,7 +61,8 @@ SRC = ROOT / "src"
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s (data sheet)
 HBM_BPS = 3.35e12  # H100 SXM HBM3 bytes/s (data sheet)
-TOL_OUT = 1e-4  # normalized outputs: f32 accumulation, other order, <=4k keys
+TOL_OUT = 1e-4  # normalized outputs: f32 accumulation, other order, <=8k keys
+BF16_ROUND = 2.0 ** -7  # a bf16 output may round to the neighbouring value
 TOL_M = 1e-4  # running max: the same scores summed in another order
 RTOL_L = 1e-4  # softmax denominators (up to thousands): relative
 
@@ -105,13 +121,20 @@ def _fin(o, l):
 
 def _check(name, got, want, log):
     """Hold a kernel's (o[, m, l]) against its plain version; returns the max
-    abs error of the normalized output."""
+    abs error of the normalized output.  A bf16 output (K4) is the same f32
+    result rounded once, so it may land one bf16 step from the plain one:
+    its tolerance adds 2^-7 |plain|."""
     import torch
 
     if isinstance(got, torch.Tensor):
-        err = (got - want).abs().max().item()
-        ok = err <= TOL_OUT
-        log.append(f"  {name}: max_abs_err {err:.3e} (tol {TOL_OUT:g})")
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        if got.dtype == torch.bfloat16:
+            ok = bool((diff <= TOL_OUT + BF16_ROUND * want.float().abs()).all())
+            tol = f"{TOL_OUT:g} + 2^-7 |plain|"
+        else:
+            ok, tol = err <= TOL_OUT, f"{TOL_OUT:g}"
+        log.append(f"  {name}: max_abs_err {err:.3e} (tol {tol})")
     else:
         o, m, l = got[0], got[1], got[2]
         wo, wm, wl = want[0], want[1], want[2]
@@ -349,17 +372,186 @@ def phase_kernels(rec, card):
     torch.cuda.empty_cache()
 
 
-def _serve(cfg, n_inst, capacity, lens, new_tokens, seed, check_oracle):
+def _attended_pairs(qp, kp, causal, window):
+    """(q, k) pairs the position mask admits: the work K4's bound counts."""
+    total = 0
+    kp = np.asarray(kp, np.int64)
+    for i in range(0, len(qp), 1024):
+        d = np.asarray(qp[i:i + 1024], np.int64)[:, None] - kp[None, :]
+        ok = np.ones(d.shape, bool)
+        if causal:
+            ok &= d >= 0
+        if window is not None:
+            ok &= d < window
+        total += int(ok.sum())
+    return total
+
+
+def _valid_keys(lens, s, offset, window):
+    """Keys K5 reads: per row, [max(0, len - window + 1 - offset),
+    min(S, len - offset))."""
+    n = 0
+    for ln in lens:
+        hi = max(0, min(s, int(ln) - offset))
+        lo = max(0, int(ln) - window + 1 - offset) if window else 0
+        n += max(0, hi - min(lo, hi))
+    return n
+
+
+def phase_attention_kernels(rec, card):
+    """K4 and K5: checks (phase 2) and timings (phase 3) at the widths of
+    the serial path's models."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import striped_attention as sa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rng = np.random.default_rng(1)
+    log = ["[check] K4 / K5 vs plain versions (TF32 off)"]
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def ipos(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.int32, device=dev)
+
+    # ---- K4: (tag, B, Sq, Sk, H, KVH, D, dtype, causal, window, softcap,
+    # positions); the first two are the main path's widths
+    ar = np.arange
+    k4_cases = [
+        ("mixtral S=6144 window=4096", 1, 6144, 6144, 32, 8, 128, bf16, True,
+         4096, None, (ar(6144), ar(6144))),
+        ("zamba2 S=4096", 1, 4096, 4096, 32, 32, 80, bf16, True, None, None,
+         (ar(4096), ar(4096))),
+        ("non-causal Sq=300 Sk=500 B=2 f32", 2, 300, 500, 32, 8, 128, f32,
+         False, None, None, (ar(300), ar(500))),
+        ("softcap D=80 B=2", 2, 257, 257, 32, 32, 80, bf16, True, None, 30.0,
+         (ar(257), ar(257))),
+        ("striped q shard 3 / kv shard 1 of 4, window", 1, 512, 512, 32, 8,
+         128, bf16, True, 200, None, (ar(512) * 4 + 3, ar(512) * 4 + 1)),
+        ("unsorted positions B=3 f32 window softcap", 3, 200, 333, 32, 8, 128,
+         f32, True, 64, 50.0, (rng.permutation(400)[:200],
+                               rng.permutation(400)[:333])),
+    ]
+    k4_err = 0.0
+    timed = {}
+    for tag, b, sq, sk, h, kvh, d, dt, causal, window, softcap, (qp, kp) in k4_cases:
+        q, k, v = randn(b, sq, h, d, dtype=dt), randn(b, sk, kvh, d, dtype=dt), \
+            randn(b, sk, kvh, d, dtype=dt)
+        qpd, kpd = ipos(qp), ipos(kp)
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        err = _check(f"K4 {tag}", sa.striped_flash_attention(q, k, v, qpd, kpd, **kw),
+                     sa.striped_flash_attention_plain(q, k, v, qpd, kpd, **kw), log)
+        k4_err = max(k4_err, err)
+        if not tag.startswith(("mixtral", "zamba2")):
+            continue
+        pairs = _attended_pairs(qp, kp, causal, window) * b
+        flops = 4 * h * d * pairs
+        bytes_ = (2 * b * sq * h * d + 2 * b * sk * kvh * d) * q.element_size()
+        ms = _time_ms(lambda: sa.striped_flash_attention(q, k, v, qpd, kpd, **kw))
+        plain_ms = _time_ms(lambda: sa.striped_flash_attention_plain(
+            q, k, v, qpd, kpd, **kw), 2, 1)
+        # yardstick: SDPA on the GQA-expanded [B, H, S, D] layout, the same
+        # mask (is_causal without a window, else a boolean mask)
+        q4 = q.transpose(1, 2).contiguous()
+        k4, v4 = (x.repeat_interleave(h // kvh, dim=2).transpose(1, 2).contiguous()
+                  for x in (k, v))
+        if window is None:
+            sdpa_kw = dict(is_causal=True)
+        else:
+            dd = qpd[:, None] - kpd[None, :]
+            sdpa_kw = dict(attn_mask=(dd >= 0) & (dd < window))
+        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, **sdpa_kw), 5, 1)
+        bound = max(flops / PEAK_BF16, bytes_ / HBM_BPS) * 1e3
+        by = "operations" if flops / PEAK_BF16 > bytes_ / HBM_BPS else "bytes"
+        timed[tag] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                          library_ms=lib_ms)
+        print(f"[time {card}] K4 {tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"sdpa {lib_ms:.3f} ms, bound {bound:.4f} ms ({by}; "
+              f"{flops / 1e9:.1f} GFLOP over {pairs} pairs, {bytes_ / 1e6:.1f} MB)")
+        del q4, k4, v4
+    rec["K4"] = dict(
+        name="striped_flash_attention", route="cuda",
+        source="src/repro_torch/csrc/striped_attention.cu",
+        replaces="src/repro/kernels/striped_attention.py:102",
+        max_abs_err=k4_err, **timed["mixtral S=6144 window=4096"])
+
+    # ---- K5: (tag, B, S, lengths, offset, H, KVH, D, q dtype, kv dtype,
+    # window, softcap); the first three are the serial decode's shapes
+    legacy = rng.integers(1024, 1024 + 4096 + 600, 16)
+    legacy[[0, 5]] = [0, 700]  # empty rows: no length, or all before the shard
+    k5_cases = [
+        ("mixtral B=1 ctx=5000 window=4096", 1, 5000, [5000], 0, 32, 8, 128,
+         bf16, bf16, 4096, None),
+        ("mixtral B=1 ctx=8192 window=4096", 1, 8192, [8192], 0, 32, 8, 128,
+         bf16, bf16, 4096, None),
+        ("zamba2 B=1 ctx=8192", 1, 8192, [8192], 0, 32, 32, 80, bf16, bf16,
+         None, None),
+        ("legacy B=16 S=4096 offset=1024 window=1000", 16, 4096, legacy, 1024,
+         32, 8, 128, bf16, f32, 1000, None),
+        ("zamba2 B=4 f32 softcap", 4, 700, [0, 1, 350, 700], 0, 32, 32, 80,
+         f32, f32, None, 30.0),
+    ]
+    k5_err = 0.0
+    for tag, b, s, lens, off, h, kvh, d, qdt, kvdt, window, softcap in k5_cases:
+        q = randn(b, 1, h, d, dtype=qdt)
+        k, v = randn(b, s, kvh, d, dtype=kvdt), randn(b, s, kvh, d, dtype=kvdt)
+        ln = ipos(lens)
+        kw = dict(k_pos_offset=off, window=window, softcap=softcap)
+        got = fd.flash_decode_partial(q, k, v, ln, **kw)
+        err = _check(f"K5 {tag}", got, fd.flash_decode_partial_plain(q, k, v, ln, **kw),
+                     log)
+        k5_err = max(k5_err, err)
+        for i, x in enumerate(lens):
+            if _valid_keys([x], s, off, window) == 0:
+                assert torch.isinf(got.m[i]).all() and (got.l[i] == 0).all(), tag
+        if tag.startswith("mixtral B=1 ctx=8192"):
+            continue
+        n_valid = _valid_keys(lens, s, off, window)
+        nbytes = (2 * n_valid * kvh * d * k.element_size() + b * h * d * q.element_size()
+                  + b * h * (d + 2) * 4 + b * 4)
+        flops = 4 * h * d * n_valid
+        ms = _time_ms(lambda: fd.flash_decode_partial(q, k, v, ln, **kw), 20)
+        plain_ms = _time_ms(lambda: fd.flash_decode_partial_plain(q, k, v, ln, **kw), 5)
+        bound = max(nbytes / HBM_BPS, flops / PEAK_BF16) * 1e3
+        by = "bytes" if nbytes / HBM_BPS >= flops / PEAK_BF16 else "operations"
+        print(f"[time {card}] K5 {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound:.5f} ms ({by}; {n_valid} valid keys, {nbytes / 1e6:.2f} MB, "
+              f"{b * kvh} CTAs)")
+        if tag.startswith("mixtral B=1 ctx=5000"):
+            rec["K5"] = dict(
+                name="flash_decode_partial", route="cuda",
+                source="src/repro_torch/csrc/flash_decode.cu",
+                replaces="src/repro/kernels/flash_decode.py:98",
+                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=None)
+    rec["K5"]["max_abs_err"] = k5_err
+    print("\n".join(log))
+    torch.cuda.empty_cache()
+
+
+def _serve(cfg, n_inst, capacity, lens, new_tokens, seed, check_oracle,
+           serial=False):
     """One real-mode engine run; returns (metrics, kernel launches, dispatch
-    counts, wall seconds, {stage: seconds} spans)."""
+    counts, wall seconds, {stage: seconds} spans).  ``serial`` families (moe,
+    hybrid) take the per-request path: K4 and K5 must launch and K1-K3 not;
+    otherwise the packed / paged path: K1-K3 must launch and no serial
+    prefill run."""
     import torch
 
     from repro_torch.convert import init_params
     from repro_torch.engine.request import Request
     from repro_torch.engine.server import LoongServeEngine
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_flash_decode as pfd
     from repro_torch.kernels import paged_flash_prefill as pfp
+    from repro_torch.kernels import striped_attention as sa
     from repro_torch.models import build_model
 
     model = build_model(cfg)
@@ -372,14 +564,16 @@ def _serve(cfg, n_inst, capacity, lens, new_tokens, seed, check_oracle):
             for n in lens]
     for r in reqs:
         eng.submit(r)
-    # build the pool mirrors (one full host->device upload each) before the
-    # clock starts, and time it on its own
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for pool in eng.pool.pools:
-        pool.device_kv()
-    torch.cuda.synchronize()
-    spans = {"mirror_build": time.perf_counter() - t0}
+    spans = {}
+    if not serial:
+        # build the pool mirrors (one full host->device upload each) before
+        # the clock starts, and time it on its own
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for pool in eng.pool.pools:
+            pool.device_kv()
+        torch.cuda.synchronize()
+        spans["mirror_build"] = time.perf_counter() - t0
 
     def timed(key, fn):
         """Host-clock span of one executor stage, synchronized at both ends
@@ -397,28 +591,46 @@ def _serve(cfg, n_inst, capacity, lens, new_tokens, seed, check_oracle):
     ex = eng.executor
     ex.prefill = timed("prefill", ex.prefill)
     ex.decode = timed("decode", ex.decode)
-    ex._emit_decoded = timed("decode: emit + KV to host", ex._emit_decoded)
-    for pool in eng.pool.pools:
-        pool.device_kv = timed("mirror sync", pool.device_kv)
+    if serial:
+        # decode_serial's per-step host round trip of the request's KV
+        eng.pool.gather_request = timed("decode: host gather of the KV",
+                                        eng.pool.gather_request)
+        ex._to_dev = timed("host->device uploads (KV, tokens)", ex._to_dev)
+    else:
+        ex._emit_decoded = timed("decode: emit + KV to host", ex._emit_decoded)
+        for pool in eng.pool.pools:
+            pool.device_kv = timed("mirror sync", pool.device_kv)
     up0 = sum(p.mirror_uploaded_slots for p in eng.pool.pools)
+    kernel_mods = (pfp, pfd, sa, fd)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_dispatch_counts()  # counts of the main path only, from here
-    pfp.launch_counts.clear()
-    pfd.launch_counts.clear()
+    for mod in kernel_mods:
+        mod.launch_counts.clear()
     t0 = time.perf_counter()
     m = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     spans["uploaded_slots"] = sum(p.mirror_uploaded_slots for p in eng.pool.pools) - up0
     spans["host_syncs"] = sum(p.host_syncs for p in eng.pool.pools)
-    counts = dict(pfp.launch_counts) | dict(pfd.launch_counts)
+    counts = {}
+    for mod in kernel_mods:
+        counts.update(mod.launch_counts)
     dispatch = dict(ops.dispatch_counts)
     assert len(m.finished) == len(reqs), (len(m.finished), len(reqs))
     assert m.scaling_migration_bytes == 0, m.scaling_migration_bytes
-    for name in ("packed_flash_prefill", "packed_flash_prefill_ring_chunk",
-                 "paged_flash_decode_partial"):
-        assert counts.get(name, 0) > 0, (name, counts)
-    assert dispatch.get("prefill_serial_model", 0) == 0, dispatch
+    packed = ("packed_flash_prefill", "packed_flash_prefill_ring_chunk",
+              "paged_flash_decode_partial")
+    if serial:
+        for name in ("striped_flash_attention", "flash_decode_partial"):
+            assert counts.get(name, 0) > 0, (name, counts)
+        for name in packed:
+            assert counts.get(name, 0) == 0, (name, counts)
+        assert dispatch.get("prefill_serial_model", 0) >= len(reqs), dispatch
+        assert not eng._real_cache, "recurrent state of finished requests kept"
+    else:
+        for name in packed:
+            assert counts.get(name, 0) > 0, (name, counts)
+        assert dispatch.get("prefill_serial_model", 0) == 0, dispatch
     for r in reqs:
         assert len(r.output_tokens) == new_tokens, r.output_tokens
         assert all(0 <= t < cfg.vocab_size for t in r.output_tokens)
@@ -429,6 +641,45 @@ def _serve(cfg, n_inst, capacity, lens, new_tokens, seed, check_oracle):
             want = ref.serial_decode_oracle(model, params, r.prompt, new_tokens - 1)
             assert r.output_tokens == want, (r.rid, r.output_tokens, want)
     return m, counts, dispatch, wall, spans
+
+
+def _report(tag, cfg, m, counts, dispatch, wall, spans, lens, new_tokens):
+    import torch
+
+    summ = m.summary()
+    toks = sum(len(r.output_tokens) for r in m.finished)
+    print(f"[serve] {tag}: {len(lens)} requests (prompts {lens}), {new_tokens} new "
+          f"tokens each: wall {wall:.3f} s, {toks} tokens out, prefill_iters "
+          f"{summ['prefill_iters']}, decode_iters {summ['decode_iters']}, "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"[serve] {tag}: kernel launches {counts}; dispatches {dispatch}")
+    print(f"[serve] {tag}: spans (s): "
+          + ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+                      for k, v in spans.items()))
+    return summ
+
+
+def _serve_serial(name, cfg, lens, new_tokens, capacity, seed):
+    """Phases 6-7: one serial-path serving run at full width; returns the
+    kernel launches."""
+    import torch
+
+    m, counts, dispatch, wall, spans = _serve(cfg, 4, capacity, lens,
+                                              new_tokens, seed, False, serial=True)
+    _report(name, cfg, m, counts, dispatch, wall, spans, lens, new_tokens)
+    dec = spans.get("decode", 0.0)
+    host = (spans.get("decode: host gather of the KV", 0.0)
+            + spans.get("host->device uploads (KV, tokens)", 0.0))
+    n_attn = cfg.n_attention_applications
+    print(f"[serve] {name}: wall split: serial prefill {spans.get('prefill', 0.0):.3f} s, "
+          f"decode compute {dec - host:.3f} s, host gather + upload of the KV "
+          f"{host:.3f} s (inside decode); K4 {counts['striped_flash_attention'] / n_attn:.0f} "
+          f"prefills x {n_attn} attention layers, K5 "
+          f"{counts['flash_decode_partial'] / n_attn:.0f} request-steps x {n_attn} "
+          "attention layers")
+    gc.collect()  # the engine and its executor reference each other
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main() -> int:
@@ -459,6 +710,7 @@ def main() -> int:
     phase_build()
     rec: dict = {}
     phase_kernels(rec, smi.splitlines()[0])
+    phase_attention_kernels(rec, smi.splitlines()[0])
 
     from repro_torch.configs import get_config
 
@@ -496,7 +748,40 @@ def main() -> int:
           f"(prompts {lens2}) token-identical to the serial oracle; launches "
           f"{counts2}; wall {wall2:.3f} s")
 
-    order = ("K1", "K3", "K2")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phase 6: full-width mixtral-8x7b (moe), 16 of 32 layers, bf16
+    mix = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=16)
+    print("[serve] mixtral-8x7b cut to 16 of its 32 layers: full depth is "
+          f"{get_config('mixtral-8x7b').param_count() * 2 / 1e9:.1f} GB of bf16 "
+          f"weights, 16 layers {mix.param_count() * 2 / 1e9:.1f} GB, on an 80 GB card")
+    lens6 = [int(x) for x in np.random.default_rng(6).integers(512, 2049, 6)] + [5000]
+    c_mix = _serve_serial("mixtral-8x7b 16/32 layers bf16", mix, lens6, 12, 8192, 6)
+
+    # ---- phase 7: full-width, full-depth zamba2-2.7b (hybrid), bf16
+    zam = get_config("zamba2-2.7b")
+    lens7 = [int(x) for x in np.random.default_rng(7).integers(512, 2049, 6)]
+    c_zam = _serve_serial("zamba2-2.7b full depth bf16", zam, lens7, 12, 4096, 7)
+    for key, name in (("K4", "striped_flash_attention"), ("K5", "flash_decode_partial")):
+        rec[key]["launches"] = c_mix[name] + c_zam[name]
+        print(f"[serve] {key} launches on the serial main path: mixtral "
+              f"{c_mix[name]} + zamba2 {c_zam[name]}")
+
+    # ---- phase 8: serial-path token parity, full width, reduced depth, f32
+    for cfg8, lens8 in (
+            (dataclasses.replace(mix, n_layers=2, dtype="float32"),
+             [int(x) for x in np.random.default_rng(8).integers(128, 1025, 3)] + [4200]),
+            (dataclasses.replace(zam, n_layers=6, dtype="float32"),
+             [int(x) for x in np.random.default_rng(9).integers(128, 1025, 4)])):
+        _, counts8, _, wall8, _ = _serve(cfg8, 4, 8192, lens8, 6, 8, True, serial=True)
+        print(f"[parity] {cfg8.name} width, {cfg8.n_layers} layers, f32: "
+              f"{len(lens8)} requests (prompts {lens8}) token-identical to the "
+              f"serial oracle; launches {counts8}; wall {wall8:.3f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    order = ("K1", "K3", "K2", "K4", "K5")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [rec[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {

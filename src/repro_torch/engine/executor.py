@@ -11,7 +11,12 @@ launches and KV writes, on the engine's device:
     per instance per ring step;
   * batched paged decode: one K2 launch per instance per layer over the
     pool mirrors in place, partials LSE-merged multi-master style;
-  * per-request serial fallbacks (dense family only here).
+  * per-request serial prefill and decode for the families the packed and
+    paged impls do not cover (moe: capacity dropping depends on the batch;
+    hybrid: recurrent state), through the model's default attention — one
+    K4 launch per attention layer per prefill, one K5 launch per attention
+    layer per decode step.  A hybrid's recurrent state stays on the device
+    in ``engine._real_cache`` between steps.
 
 PyTorch runs eagerly, so the reference's jitted-program LRU has no
 counterpart; the padding buckets stay so that padded shapes and striping
@@ -196,7 +201,8 @@ class LocalExecutor:
             )
 
     def prefill_serial(self, batch) -> None:
-        """Per-request fallback (a custom attention impl)."""
+        """Per-request prefill (recurrent/hybrid state, moe capacity, or a
+        custom attention impl)."""
         from repro_torch.kernels import ops
 
         eng = self.eng
@@ -217,6 +223,8 @@ class LocalExecutor:
                     eng.pool.pools[inst].fill(
                         r.rid, positions, k[:, positions], v[:, positions]
                     )
+            if cache.ssm is not None:
+                eng._real_cache[r.rid] = cache.ssm  # stays on the device
 
     # -------------------------------------------------------------- decode
     def decode(self, g) -> None:
@@ -285,13 +293,17 @@ class LocalExecutor:
                 eng._pending_kv[r.rid] = (k_host[:, b], v_host[:, b])
 
     def decode_serial(self, g) -> None:
-        """Per-request fallback over a dense gathered cache (a custom
-        attention impl)."""
+        """Per-request decode over a dense cache gathered from the pools on
+        the host and uploaded for the step (the reference's design: every
+        step moves the request's whole KV host -> device), with the
+        recurrent state passed back in from ``engine._real_cache``."""
         from repro_torch.models.transformer import Cache
 
         eng = self.eng
         for r in g.requests:
             positions, k, v = eng.pool.gather_request(r.rid)
+            # cache holds tokens 0..seq_len-2; the processed token's KV is
+            # produced by this step and appended at the master afterwards
             n_cached = r.seq_len - 1
             assert len(positions) == n_cached, (len(positions), n_cached)
             dt = eng.model.dtype
@@ -299,15 +311,19 @@ class LocalExecutor:
                 k=self._to_dev(k[:, None]).to(dt),
                 v=self._to_dev(v[:, None]).to(dt),
                 length=self._to_dev(np.asarray([n_cached], np.int32)),
+                ssm=eng._real_cache.get(r.rid),
             )
-            logits, _, kvs = eng.model.decode(
+            logits, new_cache, kvs = eng.model.decode(
                 eng.params, self._to_dev(np.asarray([r.output_tokens[-1]],
                                                     np.int64)), cache
             )
             row = self._guard_logits(r, logits[0].cpu().numpy())
             if row is None:
-                continue  # quarantined: no token, no KV update
+                continue  # quarantined: no token, no cache/KV update
             r.output_tokens.append(eng._sample_token(row))
+            if new_cache.ssm is not None:
+                eng._real_cache[r.rid] = new_cache.ssm
+            # stash; _on_decode_done fills it once the slot is allocated
             eng._pending_kv[r.rid] = (
                 kvs[0][:, 0].float().cpu().numpy(),  # [L, 1, KVH, D]
                 kvs[1][:, 0].float().cpu().numpy(),

@@ -7,9 +7,11 @@ and becomes its own shared library::
          -Xcompiler -fPIC -Xptxas -v -o <name>-<hash>.so <name>.cu
 
 The library is built at first use into ``build/repro_torch/`` at the root of
-the checkout (listed in ``.gitignore``), keyed by a hash of the source and
-the flags, and loaded with `ctypes` (pointers and the stream as
-``c_void_p``).  No PyTorch header is compiled, so a build takes seconds.
+the checkout (listed in ``.gitignore``), keyed by a hash of the source, every
+local header it includes (``#include "x.cuh"``, followed recursively) and the
+flags, so a stale library is never loaded; it is loaded with `ctypes`
+(pointers and the stream as ``c_void_p``).  No PyTorch header is compiled,
+so a build takes seconds.
 `build_all` compiles every source in parallel — one nvcc per source, all
 started together — and returns each compiler's ``-Xptxas -v`` report.
 Nothing here runs at import time: the CPU tests import every module.
@@ -19,10 +21,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -49,7 +52,16 @@ _SIGNATURES = {
         "repro_paged_decode": [_P] * 10 + [_I] * 9 + [_F, _F, _P],
         "repro_paged_decode_error_string": [_I],
     },
+    "striped_attention": {
+        "repro_striped_attention": [_P] * 6 + [_I] * 9 + [_F, _F, _P],
+        "repro_striped_attention_error_string": [_I],
+    },
+    "flash_decode": {
+        "repro_flash_decode": [_P] * 7 + [_I] * 9 + [_F, _F, _P],
+        "repro_flash_decode_error_string": [_I],
+    },
 }
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 
 
 def _nvcc() -> str:
@@ -60,10 +72,34 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def source_files(src: Path) -> List[Path]:
+    """`src` and every local header it reaches through quoted includes
+    (resolved next to the including file, as nvcc does), sorted."""
+    seen, todo = set(), [src.resolve()]
+    while todo:
+        p = todo.pop()
+        if p in seen:
+            continue
+        seen.add(p)
+        for inc in _INCLUDE.findall(p.read_bytes()):
+            cand = (p.parent / inc.decode()).resolve()
+            if cand.is_file():
+                todo.append(cand)
+    return sorted(seen)
+
+
+def source_key(src: Path) -> str:
+    """Build key of one source: a hash of its text, the text of every local
+    header it includes, and the flags."""
+    h = hashlib.sha256()
+    for p in source_files(src):
+        h.update(p.name.encode() + b"\0" + p.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{key}.so"
+    return BUILD_DIR / f"{name}-{source_key(CSRC / f'{name}.cu')}.so"
 
 
 def _start(name: str):

@@ -6,19 +6,22 @@ wrapper raises).  There is no implementation switch and no fallback.
 
 `dispatch_counts` tracks dispatch volume per entry point so tests and
 `chip_smoke.py` can assert launch-count invariants (one paged decode launch
-per instance per layer, zero serial prefills).  The fault hook is the seam
-the engine's bounded-retry path (and a chaos harness) injects
-`TransientDispatchError` through.
+per instance per layer, zero serial prefills; one `attention` per attention
+layer of a serial prefill, one `decode_partial` per attention layer of a
+serial decode step).  The fault hook is the seam the engine's bounded-retry
+path (and a chaos harness) injects `TransientDispatchError` through.
 """
 from __future__ import annotations
 
 from collections import Counter
 
+from repro_torch.kernels.flash_decode import flash_decode_partial
 from repro_torch.kernels.paged_flash_decode import paged_flash_decode_partial
 from repro_torch.kernels.paged_flash_prefill import (
     packed_flash_prefill,
     packed_flash_prefill_ring_chunk,
 )
+from repro_torch.kernels.striped_attention import striped_flash_attention
 from repro_torch.models.attention import Partial
 
 
@@ -52,6 +55,26 @@ dispatch_counts: Counter = Counter()
 
 def reset_dispatch_counts() -> None:
     dispatch_counts.clear()
+
+
+def attention(q, k, v, q_pos, k_pos, *, causal=True, window=None,
+              softcap=None):
+    """Position-masked attention, normalized (K4): the serial prefill's
+    attention, one launch per attention layer."""
+    check_fault("attention")
+    dispatch_counts["attention"] += 1
+    return striped_flash_attention(q, k, v, q_pos, k_pos, causal=causal,
+                                   window=window, softcap=softcap)
+
+
+def decode_partial(q, k, v, lengths, *, k_pos_offset=0, window=None,
+                   softcap=None) -> Partial:
+    """Per-request decode partial over a dense KV shard (K5): the serial
+    decode step's history partial, one launch per attention layer."""
+    check_fault("decode_partial")
+    dispatch_counts["decode_partial"] += 1
+    return flash_decode_partial(q, k, v, lengths, k_pos_offset=k_pos_offset,
+                                window=window, softcap=softcap)
 
 
 def prefill_packed(q, k, v, seq_offsets, *, window=None, softcap=None):

@@ -1,7 +1,9 @@
 """Dense oracles for the kernels and the engine (allclose / token targets).
 
 PyTorch counterparts of the dense oracles in `repro/kernels/ref.py`: O(T^2)
-masks, for tests and the on-card parity phase only.
+masks.  They are the plain versions of the kernels (K4, K5 here; K1-K3 in
+their modules) and, through `PlainAttnImpl`, the attention of the port's
+serial oracle, so the oracle stays plain on the card.
 """
 from __future__ import annotations
 
@@ -14,11 +16,69 @@ from repro_torch.kernels.paged_flash_decode import (  # noqa: F401
 from repro_torch.models import attention as A
 
 
+def striped_flash_attention_ref(q, k, v, q_pos, k_pos, *, causal=True,
+                                window=None, softcap=None):
+    """Plain K4: dense position-masked attention (`A.full_attention`),
+    normalized, in q's dtype."""
+    return A.full_attention(
+        q, k, v, q_pos=torch.as_tensor(q_pos).to(q.device),
+        k_pos=torch.as_tensor(k_pos).to(q.device), causal=causal,
+        window=window, softcap=softcap,
+    )
+
+
+def flash_decode_partial_ref(q, k, v, lengths, *, k_pos_offset=0,
+                             window=None, softcap=None) -> A.Partial:
+    """Plain K5: the unnormalized partial of q [B,1,H,D] over one dense KV
+    shard [B,S,KVH,D] whose first key sits at global position
+    ``k_pos_offset``.  Repo window convention (see the reference's
+    striped_attention.py): the query sits at global position ``lengths``
+    (its own KV is not in the shard), so ``qp - kp < window`` is
+    ``kp > lengths - window``."""
+    b, s = k.shape[0], k.shape[1]
+    pos = k_pos_offset + torch.arange(s, device=q.device)
+    cl = torch.as_tensor(lengths).to(q.device)
+    valid = pos[None, :] < cl[:, None]
+    if window is not None:
+        valid &= pos[None, :] > (cl[:, None] - window)
+    mask = valid[:, None, :].expand(b, q.shape[1], s)
+    return A.partial_attention(q, k, v, mask, softcap=softcap)
+
+
+class PlainAttnImpl:
+    """The default attention of the model in plain PyTorch (no kernel):
+    `DefaultAttnImpl` with K4 / K5 replaced by their dense oracles.  The
+    serial oracle runs the model under it, so on the card the oracle never
+    goes through the kernels it is held against."""
+
+    def prefill_attn(self, q, k, v, q_pos, k_pos, *, causal, window, softcap):
+        return striped_flash_attention_ref(q, k, v, q_pos, k_pos, causal=causal,
+                                           window=window, softcap=softcap)
+
+    def decode_attn(self, q, k_cache, v_cache, k_new, v_new, cache_len, *,
+                    window, softcap):
+        p_hist = flash_decode_partial_ref(q, k_cache, v_cache, cache_len,
+                                          window=window, softcap=softcap)
+        p_new = A.partial_attention(q, k_new, v_new, None, softcap=softcap)
+        return A.finalize_partial(A.merge_partial(p_hist, p_new)).to(q.dtype)
+
+
 def serial_decode_oracle(model, params, prompt, n_decode: int) -> list:
     """Greedy token oracle for engine parity: one serial prefill over
     `prompt` followed by ``n_decode`` dense-cache decode steps (argmax,
-    KV appended in place).  Returns the ``n_decode + 1`` emitted token ids —
-    what a real-mode engine must reproduce exactly."""
+    KV appended in place), with the model's attention swapped for
+    `PlainAttnImpl` for the duration (the way the executor swaps impls).
+    Returns the ``n_decode + 1`` emitted token ids — what a real-mode engine
+    must reproduce exactly."""
+    prev_impl = model.attn_impl
+    model.attn_impl = PlainAttnImpl()
+    try:
+        return _serial_decode(model, params, prompt, n_decode)
+    finally:
+        model.attn_impl = prev_impl
+
+
+def _serial_decode(model, params, prompt, n_decode: int) -> list:
     dev = model.device
     toks = torch.as_tensor(np.asarray(prompt, np.int64)[None], device=dev)
     logits, cache = model.prefill(params, {"tokens": toks})

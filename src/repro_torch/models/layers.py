@@ -12,11 +12,12 @@ import torch.nn.functional as F
 # ---------------------------------------------------------------- init utils
 
 
-def normal_init(shape, dtype, generator: torch.Generator, device) -> torch.Tensor:
-    """normal(0, 0.02) drawn directly on `device` (the reference's
+def normal_init(shape, dtype, generator: torch.Generator, device,
+                scale: float = 0.02) -> torch.Tensor:
+    """normal(0, scale) drawn directly on `device` (the reference's
     `normal_init`; a torch Generator gives other numbers than a jax key)."""
     return torch.empty(shape, dtype=dtype, device=device).normal_(
-        0.0, 0.02, generator=generator
+        0.0, scale, generator=generator
     )
 
 

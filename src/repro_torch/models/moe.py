@@ -1,0 +1,97 @@
+"""Mixture-of-Experts layer: top-k router + sort-based capacity dispatch.
+
+PyTorch counterpart of `repro/models/moe.py`, same layouts (``router
+[d, E]``, ``w_up``/``w_gate [E, d, f]``, ``w_down [E, f, d]``).  Dispatch is
+gather/scatter (a stable sort by expert), so only active expert compute is
+done on a grouped ``[E, C, d]`` buffer; tokens past an expert's capacity C
+are dropped.  Token parity with the reference rests on three details:
+
+  * the router's top-k keeps the lower expert index first among equal
+    scores, as ``lax.top_k`` does (a stable descending sort; `torch.topk`
+    documents no order for ties);
+  * the dispatch sort is stable (``jnp.argsort`` is; torch's default sort
+    is not);
+  * dropped assignments add a zero row into slot 0 of their expert, as the
+    reference's ``.at[...].add`` does, via ``index_put_(accumulate=True)``.
+
+The expert products are plain batched matmuls outside any kernel, as the
+reference leaves them to XLA.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+
+class MoEOutput(NamedTuple):
+    out: torch.Tensor
+    aux_loss: torch.Tensor  # load-balancing loss (scalar, f32)
+    dropped_frac: torch.Tensor  # fraction of assignments dropped by capacity
+
+
+def capacity(n_tokens: int, n_experts: int, top_k: int, factor: float) -> int:
+    c = int(n_tokens * top_k * factor / n_experts) + 1
+    return max(8, -(-c // 8) * 8)  # round up to multiple of 8
+
+
+def _expert_act(up, gate, ffn_kind: str):
+    if ffn_kind == "swiglu":
+        return F.silu(gate) * up
+    if ffn_kind == "relu2":
+        r = F.relu(up)
+        return r * r
+    return F.gelu(up, approximate="tanh")  # jax.nn.gelu's default
+
+
+def apply_moe(p: dict, x: torch.Tensor, *, top_k: int, capacity_factor: float,
+              ffn_kind: str) -> MoEOutput:
+    """x [T, d] flat tokens -> MoEOutput(out [T, d] in x.dtype, aux, dropped)."""
+    t, d = x.shape
+    e = p["router"].shape[1]
+    cap = capacity(t, e, top_k, capacity_factor)
+    dev = x.device
+
+    # f32 router logits: bf16 products are exact in f32 (the reference's
+    # preferred_element_type=f32)
+    logits = x.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)  # [T, E] f32
+    top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_i = top_p[:, :top_k], top_i[:, :top_k]
+    top_p = top_p / top_p.sum(dim=-1, keepdim=True)  # renormalize
+
+    # ---- sort-based dispatch ----
+    flat_e = top_i.reshape(-1)  # [T*k]
+    flat_w = top_p.reshape(-1)
+    slots = torch.arange(t * top_k, device=dev)
+    flat_t = slots // top_k  # owning token of each slot
+    order = torch.argsort(flat_e, stable=True)
+    se, sw, st = flat_e[order], flat_w[order], flat_t[order]
+    counts = torch.bincount(flat_e, minlength=e)  # [E]
+    start = torch.cumsum(counts, 0) - counts  # exclusive prefix
+    pos = slots - start[se]  # position within the expert's bucket
+    keep = pos < cap
+    dropped = 1.0 - keep.float().mean()
+    slot = torch.where(keep, pos, torch.zeros_like(pos))
+
+    # scatter tokens into the [E, C, d] grouped buffer
+    xin = torch.where(keep[:, None], x[st], torch.zeros((), dtype=x.dtype,
+                                                        device=dev))
+    buf = torch.zeros((e, cap, d), dtype=x.dtype, device=dev)
+    buf.index_put_((se, slot), xin, accumulate=True)
+
+    # ---- expert FFN on grouped tokens ----
+    up = torch.bmm(buf, p["w_up"])
+    gate = torch.bmm(buf, p["w_gate"]) if ffn_kind == "swiglu" else None
+    eout = torch.bmm(_expert_act(up, gate, ffn_kind), p["w_down"])  # [E, C, d]
+
+    # ---- combine back (weighted scatter-add into tokens) ----
+    contrib = eout[se, slot] * (sw * keep).to(eout.dtype)[:, None]  # [T*k, d]
+    out = torch.zeros((t, d), dtype=contrib.dtype, device=dev)
+    out.index_put_((st,), contrib, accumulate=True)
+
+    # Switch-transformer load-balance aux: E * sum(frac_tokens * frac_prob)
+    frac_tokens = counts.float() / (t * top_k)
+    aux = e * torch.sum(frac_tokens * probs.mean(dim=0))
+    return MoEOutput(out.to(x.dtype), aux, dropped)

@@ -1,21 +1,26 @@
-"""Dense / vlm transformer: the PyTorch counterpart of
-`repro/models/transformer.py` for the families the serving path batches.
+"""Decoder model: the PyTorch counterpart of `repro/models/transformer.py`
+for the dense, vlm, moe and hybrid (zamba2) families.
 
 Parameters stay a nested dict of tensors with the reference's key names and
 the stacked-layer layout ``[L, ...]`` (see `repro_torch.convert`), and every
 entry point takes them explicitly, as the reference does — so one parameter
 set converted from the JAX pytree drives both packages in the parity tests.
 
-  * Attention is pluggable (`attn_impl`): the default is dense local math;
-    the packed-prefill / striped-ring / multi-master paged-decode impls from
-    `repro_torch.core` plug in here.
+  * Attention is pluggable (`attn_impl`): the default runs the kernels K4
+    (prefill) and K5 (decode history) through `kernels.ops`; the
+    packed-prefill / striped-ring / multi-master paged-decode impls from
+    `repro_torch.core` plug in here for the dense family.
   * `positions` is an explicit input everywhere, so the striped permutation
     is transparent to the model (RoPE and masks are position-based).
   * The reference's `lax.scan` over stacked layers is a Python loop over
     layer slices (views — no copy).
+  * moe: the FFN is `models.moe.apply_moe` on the S-major flattened tokens.
+  * hybrid: superblocks of `hybrid_mamba_per_block` Mamba2 layers followed
+    by ONE application of the shared attention + FFN block (one parameter
+    set for all superblocks); the recurrent state rides in `Cache.ssm`.
 
-Other families (moe, hybrid, ssm, encoder-decoder) raise NotImplementedError:
-they are ROADMAP queue 1 item 11.
+The ssm (xLSTM) family and encoder-decoders raise NotImplementedError: they
+are ROADMAP queue 1 item 11.
 """
 from __future__ import annotations
 
@@ -25,8 +30,9 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
-from repro_torch.models import layers
+from repro_torch.models import layers, moe, ssm
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -45,60 +51,71 @@ def layer_params(stacked: Dict[str, Any], li: int) -> Dict[str, Any]:
     }
 
 
+def _lead(tree) -> int:
+    """Leading (stacked-layer) size of a parameter tree."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return int(tree.shape[0])
+
+
 def _n_layers(params) -> int:
-    leaf = params["layers"]
-    while isinstance(leaf, dict):
-        leaf = next(iter(leaf.values()))
-    return int(leaf.shape[0])
+    return _lead(params["layers"])
 
 
 class DefaultAttnImpl:
-    """Plain (single-group) attention implementation."""
+    """Single-group attention through the kernels: K4 for prefill, K5 for
+    the decode history.  The same function as the reference's dense
+    `DefaultAttnImpl`: its oracles `striped_flash_attention_ref` (literally
+    `full_attention`) and `flash_decode_partial_ref` (with k_pos_offset 0
+    and lengths = cache_len, the same ``kp > len - window`` predicate) are
+    exactly this math (`repro/kernels/ref.py:43-65`)."""
 
     def prefill_attn(self, q, k, v, q_pos, k_pos, *, causal, window, softcap):
-        return attn.full_attention(
-            q, k, v, q_pos=q_pos, k_pos=k_pos, causal=causal, window=window,
-            softcap=softcap,
-        )
+        return ops.attention(q, k, v, q_pos, k_pos, causal=causal,
+                             window=window, softcap=softcap)
 
     def decode_attn(self, q, k_cache, v_cache, k_new, v_new, cache_len, *,
                     window, softcap):
         """q [B,1,H,D]; cache [B,S,KVH,D]; new token's kv [B,1,KVH,D] kept
-        out of the cache (it lives at the master instance under ESP)."""
-        b, s = k_cache.shape[0], k_cache.shape[1]
-        pos = torch.arange(s, device=q.device)
+        out of the cache (it lives at the master instance under ESP).  The
+        one-key partial of the new token, the merge and the finalize stay
+        plain, as the reference computes them outside any kernel."""
+        b = k_cache.shape[0]
         cl = torch.as_tensor(cache_len, device=q.device).expand(b)
-        k_valid = pos[None, :] < cl[:, None]
-        q_pos = cl[:, None]
-        mask = attn.mask_from_positions(
-            q_pos, pos.expand(b, s), causal=True, window=window,
-            k_valid=k_valid,
-        )
-        p_hist = attn.partial_attention(q, k_cache, v_cache, mask, softcap=softcap)
+        p_hist = ops.decode_partial(q, k_cache, v_cache, cl, window=window,
+                                    softcap=softcap)
         p_new = attn.partial_attention(q, k_new, v_new, None, softcap=softcap)
         out = attn.finalize_partial(attn.merge_partial(p_hist, p_new))
         return out.to(q.dtype)
 
 
 class Cache(NamedTuple):
-    """KV state for decode. Fields unused by a caller are None."""
+    """KV / recurrent state for decode. Fields unused by a family are None."""
 
     k: Optional[torch.Tensor] = None  # [L,B,S,KVH,Dh]
     v: Optional[torch.Tensor] = None
     length: Optional[torch.Tensor] = None  # [B] valid token count
+    ssm: Optional[Any] = None  # hybrid: SSMState, leaves [n_super, per, B, ...]
+
+
+def require_ported(cfg: ModelConfig) -> None:
+    """Raise for a family whose model is not ported yet."""
+    if cfg.family not in ("dense", "vlm", "moe", "hybrid") \
+            or cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported to PyTorch yet "
+            "(ROADMAP queue 1 item 11)"
+        )
 
 
 class Model(nn.Module):
-    """Dense-family decoder.  Holds no tensors itself: the parameter tree is
-    an explicit argument of every entry point, as in the reference."""
+    """Decoder of the ported families.  Holds no tensors itself: the
+    parameter tree is an explicit argument of every entry point, as in the
+    reference."""
 
     def __init__(self, cfg: ModelConfig, attn_impl=None, device="cuda"):
         super().__init__()
-        if cfg.family not in ("dense", "vlm") or cfg.is_encoder_decoder:
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported to PyTorch yet "
-                "(ROADMAP queue 1 item 11)"
-            )
+        require_ported(cfg)
         from repro_torch.device import resolve_device
 
         self.cfg = cfg
@@ -162,6 +179,22 @@ class Model(nn.Module):
         )
         return self._out_proj(p, out), (k_new, v_new)
 
+    def _ffn_or_moe(self, p, x):
+        cfg = self.cfg
+        if cfg.family != "moe":
+            return layers.apply_ffn(p["ffn"], x, cfg.ffn_kind)
+        b, s = x.shape[0], x.shape[1]
+        # S-major flatten, as the reference (its sharding reason does not
+        # apply here; the order decides which tokens capacity drops)
+        flat = x.transpose(0, 1).reshape(b * s, cfg.d_model)
+        mo = moe.apply_moe(p["moe"], flat, top_k=cfg.moe_top_k,
+                           capacity_factor=cfg.moe_capacity_factor,
+                           ffn_kind=cfg.ffn_kind)
+        y = mo.out.reshape(s, b, cfg.d_model).transpose(0, 1)
+        if cfg.dense_ff:
+            y = y + layers.apply_ffn(p["dense_ffn"], x, cfg.ffn_kind)
+        return y
+
     # ====================================================== dense stack
     def _dense_stack(self, params, x, positions, *, k_caches=None,
                      v_caches=None, cache_len=None, decode=False):
@@ -180,10 +213,53 @@ class Model(nn.Module):
                 y, (k, v) = self._attn_block_prefill(lp["attn"], h, positions)
             x = x + y
             h = layers.apply_norm(lp["norm2"], x, cfg.norm_kind, cfg.norm_eps)
-            x = x + layers.apply_ffn(lp["ffn"], h, cfg.ffn_kind)
+            x = x + self._ffn_or_moe(lp, h)
             ks.append(k)
             vs.append(v)
         return x, (torch.stack(ks), torch.stack(vs))
+
+    # ===================================================== hybrid stack
+    def _hybrid_stack(self, params, x, positions, *, ssm_states=None,
+                      k_caches=None, v_caches=None, cache_len=None,
+                      decode=False):
+        """zamba2: per superblock, its Mamba2 layers in order, then the
+        shared attention + FFN block.  Returns (x, (k, v) stacked over the
+        attention applications, SSMState with leaves [n_super, per, ...])."""
+        cfg = self.cfg
+        sn = params["shared_norms"]
+        mls = params["layers"]["mamba_layers"]
+        ks, vs, hs, convs = [], [], [], []
+        for si in range(_n_layers(params)):
+            sp = layer_params(mls, si)
+            sh, sc = [], []
+            for j in range(_lead(sp)):
+                mp = layer_params(sp, j)
+                h = layers.apply_norm(mp["norm"], x, cfg.norm_kind, cfg.norm_eps)
+                if decode:
+                    st = ssm.SSMState(ssm_states.h[si, j], ssm_states.conv[si, j])
+                    y, st = ssm.mamba2_decode_step(mp["mamba"], h, cfg, st)
+                else:
+                    y, st = ssm.mamba2_forward(mp["mamba"], h, cfg)
+                x = x + y
+                sh.append(st.h)
+                sc.append(st.conv)
+            h = layers.apply_norm(sn["n1"], x, cfg.norm_kind, cfg.norm_eps)
+            if decode:
+                y, (k, v) = self._attn_block_decode(
+                    params["shared_attn"], h, k_caches[si], v_caches[si],
+                    cache_len)
+            else:
+                y, (k, v) = self._attn_block_prefill(params["shared_attn"], h,
+                                                     positions)
+            x = x + y
+            h = layers.apply_norm(sn["n2"], x, cfg.norm_kind, cfg.norm_eps)
+            x = x + layers.apply_ffn(params["shared_ffn"], h, cfg.ffn_kind)
+            ks.append(k)
+            vs.append(v)
+            hs.append(torch.stack(sh))
+            convs.append(torch.stack(sc))
+        states = ssm.SSMState(h=torch.stack(hs), conv=torch.stack(convs))
+        return x, (torch.stack(ks), torch.stack(vs)), states
 
     # ============================================================== public
     def prefill(self, params, batch, positions=None, *,
@@ -194,9 +270,13 @@ class Model(nn.Module):
         b, t = x.shape[0], x.shape[1]
         if positions is None:
             positions = torch.arange(t, device=x.device)
-        x, (k, v) = self._dense_stack(params, x, positions)
-        cache = Cache(k=k, v=v, length=torch.full((b,), t, dtype=torch.int32,
-                                                  device=x.device))
+        length = torch.full((b,), t, dtype=torch.int32, device=x.device)
+        if self.cfg.family == "hybrid":
+            x, (k, v), states = self._hybrid_stack(params, x, positions)
+            cache = Cache(k=k, v=v, length=length, ssm=states)
+        else:
+            x, (k, v) = self._dense_stack(params, x, positions)
+            cache = Cache(k=k, v=v, length=length)
         if last_logit_only:
             pos = torch.as_tensor(positions, device=x.device).expand(t)
             x = x[:, int(torch.argmax(pos))][:, None, :]
@@ -238,10 +318,40 @@ class Model(nn.Module):
             tokens = tokens[:, None]
         x = layers.embed_lookup(params["embed"], tokens).to(self.dtype)
         cl = cache.length
-        x, kvs = self._dense_stack(
-            params, x, None, k_caches=cache.k, v_caches=cache.v,
-            cache_len=cl, decode=True,
-        )
-        new_cache = Cache(k=cache.k, v=cache.v, length=cl + 1)
+        if self.cfg.family == "hybrid":
+            x, kvs, states = self._hybrid_stack(
+                params, x, None, ssm_states=cache.ssm, k_caches=cache.k,
+                v_caches=cache.v, cache_len=cl, decode=True,
+            )
+            new_cache = Cache(k=cache.k, v=cache.v, length=cl + 1, ssm=states)
+        else:
+            x, kvs = self._dense_stack(
+                params, x, None, k_caches=cache.k, v_caches=cache.v,
+                cache_len=cl, decode=True,
+            )
+            new_cache = Cache(k=cache.k, v=cache.v, length=cl + 1)
         logits = self.unembed(params, x)[:, 0]
         return logits, new_cache, kvs
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device="cuda") -> Cache:
+    """Preallocated (padded) cache for the dense-cache decode path: zero KV
+    per attention application and, for hybrids, zero recurrent state per
+    Mamba2 layer (leaves [n_super, per, B, ...])."""
+    from repro_torch.device import resolve_device
+
+    require_ported(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.n_attention_applications, batch, max_len, cfg.n_kv_heads,
+             cfg.head_dim)
+    k = torch.zeros(shape, dtype=torch_dtype(cfg.dtype), device=dev)
+    states = None
+    if cfg.family == "hybrid":
+        lead = (cfg.n_layers // cfg.hybrid_mamba_per_block,
+                cfg.hybrid_mamba_per_block)
+        one = ssm.init_ssm_state(cfg, batch, device=dev)
+        states = ssm.SSMState(*(a.expand(lead + a.shape).clone() for a in one))
+    return Cache(k=k, v=torch.zeros_like(k),
+                 length=torch.zeros((batch,), dtype=torch.int32, device=dev),
+                 ssm=states)

@@ -115,7 +115,7 @@ def test_mesh_executor_is_not_ported():
         LoongServeEngine(cfg, 2, 64, store_values=True, model=model,
                          params=params, executor="mesh", device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
-        build_model(t_reduced(T_REGISTRY["mixtral-8x7b"]), device="cpu")
+        build_model(t_reduced(T_REGISTRY["xlstm-350m"]), device="cpu")
 
 
 def test_jax_oracle_agrees_with_port_oracle():

@@ -1,5 +1,6 @@
 """The port's kernels (PyTorch plain versions on the CPU) against the JAX
-reference: K1 packed prefill, K3 striped ring step, K2 paged decode.
+reference: K1 packed prefill, K3 striped ring step, K2 paged decode, K4
+position-masked attention, K5 dense-shard decode partial.
 
 The same inputs, made from a seed with numpy, go through the reference's
 `repro.kernels.ops` — the Pallas kernel body under ``impl="interpret"`` and
@@ -8,8 +9,11 @@ which on CPU tensors run their plain versions.  Tolerance 2e-5 atol on
 outputs and partials (DESIGN.md §5).  Cases: {MHA, GQA} x {window} x
 {softcap}, ragged offsets with empty segments, a 3/4-point bucket T,
 zero-length decode rows, page_size {1, 8}, ring n_shards {2, 4} with carry
-chaining equal to K1.  The kernels themselves run on the card
-(`chip_smoke.py` and tests/test_torch_kernels_gpu.py).
+chaining equal to K1; K4 {causal, non-causal} and striped / unsorted
+positions with Sq != Sk, K5 with k_pos_offset > 0, zero-length rows and
+lengths past the shard, and the window convention shared by K4 and K5.
+The kernels themselves run on the card (`chip_smoke.py` and
+tests/test_torch_kernels_gpu.py).
 """
 import numpy as np
 import pytest
@@ -21,10 +25,14 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.core import esp as tesp  # noqa: E402
 from repro_torch.core import striped as tstriped  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import flash_decode as tfd  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import paged_flash_decode as tpfd  # noqa: E402
 from repro_torch.kernels import paged_flash_prefill as tpfp  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import striped_attention as tsa  # noqa: E402
+from repro_torch.models import attention as tA  # noqa: E402
 
 ATOL = 2e-5
 H, D = 4, 16
@@ -228,3 +236,167 @@ def test_paged_decode_empty_table_is_empty_partial():
         q, kp, kp, torch.zeros((3, 0), dtype=torch.int32),
         torch.zeros(3, dtype=torch.int32))
     assert torch.isinf(p.m).all() and (p.l == 0).all() and (p.o == 0).all()
+
+
+# ------------------------------------------------------------------ K4
+
+# {MHA, GQA} x {causal, non-causal} x {window} x {softcap}
+K4_CASES = [(impl, kvh, causal, w, sc) for impl in ("xla", "interpret")
+            for kvh in (4, 2)
+            for causal, w, sc in [(True, None, None), (False, None, None),
+                                  (True, 7, None), (True, None, 5.0),
+                                  (False, 7, 5.0)]]
+
+
+def _bqkv(seed, b, sq, sk, h, kvh, d):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, sq, h, d)).astype(np.float32),
+            rng.normal(size=(b, sk, kvh, d)).astype(np.float32),
+            rng.normal(size=(b, sk, kvh, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("impl,kvh,causal,window,softcap", K4_CASES)
+def test_attention_plain_matches_reference(impl, kvh, causal, window, softcap):
+    """Contiguous positions and a striped pair of shards (q shard r = 1 of
+    n = 2 against KV shard 0: positions j*n + r)."""
+    b, s = 2, 32
+    q, k, v = _bqkv(7, b, s, s, H, kvh, D)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    pos = np.arange(s, dtype=np.int32)
+    n = 2
+    for qs, ks, qp, kp in [(q, k, pos, pos),
+                           (q[:, 1::n], k[:, 0::n], pos[1::n], pos[0::n])]:
+        want = jops.attention(*map(jnp.asarray, (qs, ks, v[:, :ks.shape[1]],
+                                                 qp, kp)),
+                              impl=impl, block_q=8, block_k=8, **kw)
+        got = tops.attention(*_t(qs, ks, v[:, :ks.shape[1]], qp, kp), **kw)
+        assert got.dtype == torch.float32
+        _close(got, want)
+
+
+@pytest.mark.parametrize("kvh,causal,window,softcap", [
+    (2, True, None, None), (4, False, 9, None), (2, True, 5, 5.0)])
+def test_attention_ragged_unsorted_matches_reference(kvh, causal, window,
+                                                     softcap):
+    """Sq != Sk, neither a block multiple, positions permuted (the kernel
+    takes any order): against the reference math (interpret mode needs
+    divisible shapes)."""
+    q, k, v = _bqkv(8, 2, 13, 29, H, kvh, D)
+    rng = np.random.default_rng(9)
+    qp = rng.permutation(40)[:13].astype(np.int32)
+    kp = rng.permutation(40)[:29].astype(np.int32)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    want = jops.attention(*map(jnp.asarray, (q, k, v, qp, kp)), impl="xla",
+                          **kw)
+    got = tops.attention(*_t(q, k, v, qp, kp), **kw)
+    _close(got, want)
+
+
+def test_attention_oracle_matches_reference_and_counts():
+    """The port's K4 oracle equals the reference's; a CPU call is one
+    dispatch and no kernel launch."""
+    q, k, v = _bqkv(10, 1, 16, 16, H, 2, D)
+    pos = np.arange(16, dtype=np.int32)
+    want = jref.striped_flash_attention_ref(*map(jnp.asarray, (q, k, v)),
+                                            pos, pos, window=5, softcap=5.0)
+    _close(tref.striped_flash_attention_ref(*_t(q, k, v, pos, pos), window=5,
+                                            softcap=5.0), want)
+    tsa.launch_counts.clear()
+    tops.reset_dispatch_counts()
+    tops.attention(*_t(q, k, v, pos, pos))
+    assert tops.dispatch_counts["attention"] == 1
+    assert sum(tsa.launch_counts.values()) == 0
+
+
+# ------------------------------------------------------------------ K5
+
+K5_CASES = [(impl, kvh, w, sc, off) for impl in ("xla", "interpret")
+            for kvh in (4, 2) for w in (None, 7) for sc in (None, 5.0)
+            for off in (0, 24)]
+
+
+@pytest.mark.parametrize("impl,kvh,window,softcap,offset", K5_CASES)
+def test_decode_partial_plain_matches_reference(impl, kvh, window, softcap,
+                                                offset):
+    """Rows: empty (length 0, or below the shard's offset), inside the
+    shard, past the shard's end (a shard of a longer cache), at its end."""
+    b, s = 4, 32
+    rng = np.random.default_rng(11)
+    q = rng.normal(size=(b, 1, H, D)).astype(np.float32)
+    _, k, v = _bqkv(12, b, 1, s, H, kvh, D)
+    lengths = np.array([0, offset + 5, offset + s + 10, offset + s], np.int32)
+    kw = dict(k_pos_offset=offset, window=window, softcap=softcap)
+    want = jops.decode_partial(*map(jnp.asarray, (q, k, v, lengths)),
+                               impl=impl, block_k=8, **kw)
+    got = tops.decode_partial(*_t(q, k, v, lengths), **kw)
+    for g_, w_ in zip(got, want):
+        _close(g_, w_)
+    assert torch.isinf(got.m[0]).all() and (got.l[0] == 0).all()
+    assert (got.o[0] == 0).all()
+
+
+def test_decode_partial_oracle_matches_reference_and_counts():
+    q = np.random.default_rng(13).normal(size=(3, 1, H, D)).astype(np.float32)
+    _, k, v = _bqkv(14, 3, 1, 20, H, 2, D)
+    lens = np.array([3, 20, 41], np.int32)
+    want = jref.flash_decode_partial_ref(*map(jnp.asarray, (q, k, v)), lens,
+                                         k_pos_offset=4, window=9)
+    got = tref.flash_decode_partial_ref(*_t(q, k, v, lens), k_pos_offset=4,
+                                        window=9)
+    for g_, w_ in zip(got, want):
+        _close(g_, w_)
+    tfd.launch_counts.clear()
+    tops.reset_dispatch_counts()
+    tops.decode_partial(*_t(q, k, v, lens))
+    assert tops.dispatch_counts["decode_partial"] == 1
+    assert sum(tfd.launch_counts.values()) == 0
+
+
+@pytest.mark.parametrize("window", [1, 2, 32, 64])
+def test_window_convention_parity(window):
+    """Mirror of the reference's test: K4's last row at the window edge
+    equals K5 over the cache without the query's own token, merged with that
+    token's one-key partial — both select the identical window."""
+    b, s, kvh = 2, 64, 2
+    q, k, v = _bqkv(15, b, s, s, H, kvh, D)
+    pos = np.arange(s, dtype=np.int32)
+    full = tops.attention(*_t(q, k, v, pos, pos), causal=True, window=window)
+    qd = torch.from_numpy(q[:, s - 1:])
+    lens = torch.full((b,), s - 1, dtype=torch.int32)
+    p_hist = tops.decode_partial(qd, *_t(k[:, :s - 1], v[:, :s - 1]), lens,
+                                 window=window)
+    p_own = tA.partial_attention(qd, *_t(k[:, s - 1:], v[:, s - 1:]), None)
+    last = tA.finalize_partial(tA.merge_partial(p_hist, p_own))[:, 0]
+    _close(last, full[:, -1].numpy())
+    want = jops.attention(*map(jnp.asarray, (q, k, v, pos, pos)), causal=True,
+                          window=window, impl="interpret", block_q=32,
+                          block_k=32)
+    _close(full, want)
+
+
+# ------------------------------------------------------------------ build
+
+
+def test_build_key_covers_included_headers(tmp_path):
+    """A library is keyed by its source AND every local header reached
+    through quoted includes: editing a header changes the key, so a stale
+    library is never loaded; an unrelated file does not."""
+    (tmp_path / "a.cuh").write_text('#include "b.cuh"\nint a;\n')
+    (tmp_path / "b.cuh").write_text("int b;\n")
+    (tmp_path / "other.cuh").write_text("int o;\n")
+    src = tmp_path / "k.cu"
+    src.write_text('#include <cuda_runtime.h>\n#include "a.cuh"\nint k;\n')
+    assert [p.name for p in _build.source_files(src)] == ["a.cuh", "b.cuh",
+                                                          "k.cu"]
+    key = _build.source_key(src)
+    (tmp_path / "other.cuh").write_text("int o2;\n")
+    assert _build.source_key(src) == key
+    (tmp_path / "b.cuh").write_text("int b2;\n")  # nested header edited
+    key2 = _build.source_key(src)
+    assert key2 != key
+    src.write_text('#include <cuda_runtime.h>\n#include "a.cuh"\nint k2;\n')
+    assert _build.source_key(src) != key2
+    # the shipped attention kernels share csrc/common.cuh
+    for name in ("striped_attention", "flash_decode"):
+        files = [p.name for p in _build.source_files(_build.CSRC / f"{name}.cu")]
+        assert files == ["common.cuh", f"{name}.cu"]
