@@ -19,29 +19,45 @@
 // conventions: masked scores are -1e30, m = -inf and l = 0 for empty rows,
 // and exp() is taken against m_safe = max(m, -1e29).
 //
-// Design.  One CTA per (q tile, KV head).  Its 64 rows are the q_per_kv q
-// heads of that KV head for 64 / q_per_kv consecutive tokens, so GQA shares
-// every K/V tile across the group (glm4's q_per_kv = 16 gives 4 tokens x 16
-// heads).  The CTA loads the offsets into shared memory and derives the exact
-// key range its rows can reach — the first row's segment start (raised by
-// the window reach) up to the last row's segment end (cut by the causal
-// reach) — so tile pairs that cannot interact are never visited and the
-// ragged block-diagonal costs what it needs.  Ragged edges (Tl not a
-// multiple of the tile, partial segments) are masked per element.
-// The inner loops are plain fp32 FMA on shared-memory tiles (4 x 4 score
-// and 4 x D/8 output register blocks per thread); operands of either input
-// type (f32 or bf16) are widened to f32 on load and accumulate in f32.
+// Design.  One CTA per (q tile, KV head).  Its rows (192 on the bf16 route
+// at head size 128, 128 at other sizes, 64 on the f32 route) are the
+// q_per_kv q heads of that KV head for consecutive tokens, so GQA shares
+// every K/V tile across the group (glm4's q_per_kv = 16 gives 12 tokens x
+// 16 heads on the bf16 route).  Tile pairs that cannot interact are never
+// visited: the CTA derives from the offsets the exact key range its rows
+// can reach.  The operand type picks the body:
+//   * bf16 (what serving runs): the tensor-core core of attn_tc.cuh (wgmma,
+//     64-key tiles in a cp.async ring).  Each row's mask is one key interval
+//     [lo, hi) of the chunk — its segment's keys, cut by the causal reach
+//     and raised by the window reach on global striped positions — so the
+//     per-element mask is two compares, and a tile inside every row's
+//     interval skips it.  The CTAs start with the last (longest) q tiles of
+//     every KV head.  K3 loads the carried (o, m, l) into the accumulators;
+//     o is written with 16-byte stores from the accumulator fragment.
+//   * f32 (the parity route of the f32 token checks; tensor cores would round
+//     f32 operands to TF32): plain fp32 FMA on 32-key shared-memory tiles
+//     (4 x 4 score and 4 x D/8 output register blocks per thread), segment
+//     ids per key and ragged edges masked per element.
 //
 // Bound on this card: the work is 4 * H * D * sum_b len_b (len_b + 1) / 2
 // FLOPs against one read of q, k, v and one write of the f32 o (plus the
 // carry for K3).  Long segments put it above the H100's ~295 FLOP/byte
 // ridge (operations bind); a packed batch of prompts up to ~2k tokens sits
-// just below it (bytes bind by a small margin).  Either bound is far below
-// what this first version takes: it runs both products on the fp32 CUDA
-// cores, not the tensor cores.  Moving them to wgmma with TMA-fed tiles is
-// the later step that attacks the bound.
+// just below it (bytes bind by a small margin).
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at a 700 W power
+// limit, over one 8192-token bucket of 11 prompts (H = KVH = 32, D 128):
+// K1's bf16 route 0.55 ms (149 TFLOP/s; the bound is 0.100 ms of bytes;
+// SDPA with a block-diagonal mask 3.4 ms), its f32 route 6.1 ms; K3 0.15 ms
+// per launch of the DoP-4 ring, which includes the wrapper's upload of the
+// two offset arrays.  As in K4, the K/V tile copies set the bf16 time.
+#include <climits>
+#include <cstdint>
+#include <type_traits>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "attn_tc.cuh"
 
 namespace {
 
@@ -49,9 +65,9 @@ constexpr int kRows = 64;     // (q token, q head) rows per CTA
 constexpr int kBK = 32;       // keys per tile
 constexpr int kThreads = 128;
 constexpr float kNegInf = -1e30f;
+namespace tc = repro::tc;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // number of off[1..n_seqs] <= j (offsets are non-decreasing)
 __device__ __forceinline__ int seg_of(const int* off, int n_seqs, int j) {
@@ -295,6 +311,174 @@ int launch(const void* q, const void* k, const void* v, const int* q_off,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------ bf16: the tensor-core core
+
+// The segment mask for tc::attend.  Each row's mask is one key interval
+// [lo, hi) of the chunk: its segment's keys, cut by the causal reach and
+// raised by the window reach on global striped positions.
+struct SegmentMask {
+  int lo[2], hi[2];    // the thread's two rows
+  int first, end;      // keys any row of the CTA reaches
+  int in_lo, in_hi;    // a tile inside [in_lo, in_hi) needs no mask
+
+  __device__ int next(int kt) const {
+    const int n = kt < 0 ? (first / tc::kBK) * tc::kBK : kt + tc::kBK;
+    return n < end ? n : -1;
+  }
+  __device__ bool interior(int kt) const { return kt >= in_lo && kt + tc::kBK <= in_hi; }
+  __device__ int key(int j) const { return j; }
+  __device__ bool ok(int slot, int j) const { return j >= lo[slot] && j < hi[slot]; }
+};
+
+template <int DP>
+__global__ void __launch_bounds__(tc::Cta<DP>::kThreads, tc::Cta<DP>::kMinBlocks)
+    flash_prefill_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const int* __restrict__ q_off,
+    const int* __restrict__ k_off, int n_seqs, const float* __restrict__ o_in,
+    const float* __restrict__ m_in, const float* __restrict__ l_in,
+    float* __restrict__ o_out, float* __restrict__ m_out,
+    float* __restrict__ l_out, int tl, int h, int kvh, int d, int qpk, int bq,
+    int q_shard, int k_shard, int n_shards, int window, float softcap,
+    float scale, int normalize) {
+  extern __shared__ __align__(128) char tc_smem[];
+  constexpr int kWarps = tc::Cta<DP>::kThreads / 32;
+  __shared__ int s_red[kWarps][4];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  // launch order: every KV head's q tile before the next q tile, the later
+  // (longer causal) rows first, so long tiles do not form the tail
+  const int lin = blockIdx.x + gridDim.x * blockIdx.y;
+  const int g = lin % kvh;
+  const int t0 = (gridDim.x - 1 - lin / kvh) * bq;
+  const int n = n_shards;
+  auto row_of = [&](int r) {  // global row (token * h + head), or -1
+    const int t = t0 + r / qpk;
+    return r < bq * qpk && t < tl ? t * h + g * qpk + r % qpk : -1;
+  };
+
+  SegmentMask mask;
+  // per CTA: min lo / max hi over rows that reach a key, and max lo / min
+  // hi over every active row
+  int red[4] = {INT_MAX, INT_MIN, INT_MIN, INT_MAX};
+#pragma unroll
+  for (int sl = 0; sl < 2; ++sl) {
+    const int r = tc::frag_row(sl);
+    int lo = 0, hi = 0;
+    if (row_of(r) >= 0) {
+      const int t = t0 + r / qpk;
+      const int seg = seg_of(q_off, n_seqs, t);
+      const int gq = t * n + q_shard;
+      lo = max(k_off[seg], 0);
+      if (window > 0) lo = max(lo, floor_div(gq - window - k_shard, n) + 1);
+      hi = min(seg < n_seqs ? k_off[seg + 1] : tl, tl);
+      hi = min(hi, floor_div(gq - k_shard, n) + 1);
+      red[2] = max(red[2], lo);
+      red[3] = min(red[3], hi);
+      if (lo < hi) {
+        red[0] = min(red[0], lo);
+        red[1] = max(red[1], hi);
+      }
+    }
+    mask.lo[sl] = lo;
+    mask.hi[sl] = hi;
+  }
+#pragma unroll
+  for (int w = 1; w < 32; w <<= 1) {
+    red[0] = min(red[0], __shfl_xor_sync(0xffffffffu, red[0], w));
+    red[1] = max(red[1], __shfl_xor_sync(0xffffffffu, red[1], w));
+    red[2] = max(red[2], __shfl_xor_sync(0xffffffffu, red[2], w));
+    red[3] = min(red[3], __shfl_xor_sync(0xffffffffu, red[3], w));
+  }
+  if (lane == 0)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s_red[warp][i] = red[i];
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    red[0] = min(red[0], s_red[w][0]);
+    red[1] = max(red[1], s_red[w][1]);
+    red[2] = max(red[2], s_red[w][2]);
+    red[3] = min(red[3], s_red[w][3]);
+  }
+  mask.first = red[0] < red[1] ? red[0] : 0;
+  mask.end = red[0] < red[1] ? red[1] : 0;
+  mask.in_lo = red[2];
+  mask.in_hi = red[3];
+
+  tc::Acc<DP> acc;
+  acc.clear();
+  if (o_in != nullptr) {  // the carried (o, m, l) of active rows
+    const int c0 = 2 * (tid & 3);
+#pragma unroll
+    for (int sl = 0; sl < 2; ++sl) {
+      const int row = row_of(tc::frag_row(sl));
+      if (row < 0) continue;
+      acc.m[sl] = m_in[row];
+      acc.l[sl] = l_in[row];
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        if (8 * j >= d) continue;
+        const float2 x = *reinterpret_cast<const float2*>(o_in + (size_t)row * d + 8 * j + c0);
+        acc.o[4 * j + 2 * sl] = x.x;
+        acc.o[4 * j + 2 * sl + 1] = x.y;
+      }
+    }
+  }
+
+  auto q_src = [&](int r) -> const __nv_bfloat16* {
+    const int row = row_of(r);
+    return row >= 0 ? q + (size_t)row * d : nullptr;
+  };
+  tc::attend<DP>(tc_smem, q_src, k + (size_t)g * d, v + (size_t)g * d,
+                 (long long)kvh * d, tl, d, scale, softcap, mask, acc);
+
+  if (normalize) {
+    float inv[2];  // 1 / l, or 1 for a row without keys (o = 0)
+#pragma unroll
+    for (int sl = 0; sl < 2; ++sl) inv[sl] = acc.l[sl] != 0.f ? 1.f / acc.l[sl] : 1.f;
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc.o[i] *= inv[(i >> 1) & 1];
+  } else if ((tid & 3) == 0) {
+#pragma unroll
+    for (int sl = 0; sl < 2; ++sl) {
+      const int row = row_of(tc::frag_row(sl));
+      if (row < 0) continue;
+      m_out[row] = acc.m[sl];
+      l_out[row] = acc.l[sl];
+    }
+  }
+  tc::store_rows<DP>(acc.o, [&](int r, int col, float4 x) {
+    const int row = row_of(r);
+    if (row >= 0 && col < d)
+      *reinterpret_cast<float4*>(o_out + (size_t)row * d + col) = x;
+  });
+}
+
+template <int DP>
+int launch_tc(const void* q, const void* k, const void* v, const int* q_off,
+              const int* k_off, int n_seqs, const float* o_in,
+              const float* m_in, const float* l_in, float* o_out,
+              float* m_out, float* l_out, int tl, int h, int kvh, int d,
+              int q_shard, int k_shard, int n_shards, int window,
+              float softcap, float scale, int normalize, cudaStream_t stream) {
+  const int qpk = h / kvh;
+  const int bq = tc::Cta<DP>::kRows / qpk;
+  const int smem = tc::Smem<DP>::kBytes;
+  auto kern = flash_prefill_tc_kernel<DP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((tl + bq - 1) / bq, kvh);
+  constexpr int threads = tc::Cta<DP>::kThreads;
+  kern<<<grid, threads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), q_off, k_off, n_seqs, o_in, m_in,
+      l_in, o_out, m_out, l_out, tl, h, kvh, d, qpk, bq, q_shard, k_shard,
+      n_shards, window, softcap, scale, normalize);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int dispatch_d(int d, const void* q, const void* k, const void* v,
                const int* q_off, const int* k_off, int n_seqs,
@@ -302,16 +486,36 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
                float* o_out, float* m_out, float* l_out, int tl, int h,
                int kvh, int q_shard, int k_shard, int n_shards, int window,
                float softcap, float scale, int normalize, cudaStream_t s) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {  // tensor cores
+    if (d % 8 != 0 ||
+        (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o_out |
+          (uintptr_t)o_in) & 15))
+      return d % 8 != 0 ? (int)cudaErrorInvalidValue
+                        : (int)cudaErrorMisalignedAddress;
+#define REPRO_LAUNCH(DP)                                                   \
+  return launch_tc<DP>(q, k, v, q_off, k_off, n_seqs, o_in, m_in, l_in,  \
+                       o_out, m_out, l_out, tl, h, kvh, d, q_shard,        \
+                       k_shard, n_shards, window, softcap, scale,          \
+                       normalize, s)
+    switch (tc::head_template(d)) {
+      case 64: REPRO_LAUNCH(64);
+      case 80: REPRO_LAUNCH(80);
+      case 128: REPRO_LAUNCH(128);
+      default: REPRO_LAUNCH(256);
+    }
+#undef REPRO_LAUNCH
+  } else {  // f32: the fp32-FMA body
 #define REPRO_LAUNCH(DP)                                                   \
   return launch<T, DP>(q, k, v, q_off, k_off, n_seqs, o_in, m_in, l_in,  \
                        o_out, m_out, l_out, tl, h, kvh, d, q_shard,        \
                        k_shard, n_shards, window, softcap, scale,          \
                        normalize, s)
-  if (d <= 32) REPRO_LAUNCH(32);
-  if (d <= 64) REPRO_LAUNCH(64);
-  if (d <= 128) REPRO_LAUNCH(128);
-  REPRO_LAUNCH(256);
+    if (d <= 32) REPRO_LAUNCH(32);
+    if (d <= 64) REPRO_LAUNCH(64);
+    if (d <= 128) REPRO_LAUNCH(128);
+    REPRO_LAUNCH(256);
 #undef REPRO_LAUNCH
+  }
 }
 
 }  // namespace

@@ -15,40 +15,55 @@
 // reference's conventions: masked scores are -1e30, exp() is taken against
 // m_safe = max(m, -1e29), and a row with no key (l == 0) outputs zeros.
 //
-// Design.  One CTA per (q tile, KV head, batch row); its 64 rows are the
-// q_per_kv q heads of that KV head for 64 / q_per_kv consecutive query
-// tokens, so GQA shares every K/V tile across the group (mixtral's
-// q_per_kv = 4 gives 16 tokens x 4 heads).  The CTA walks the key axis 32
-// keys at a time.  Because positions can be in any order, tile skipping
-// works from ranges: the CTA knows the min / max position of its queries, and
-// for each key tile warp 0 reduces the tile's min / max key position; the
-// tile is skipped when every key lies after every query (causal) or every
-// key lies outside every query's window.  For contiguous positions that
-// skips the upper triangle (about half the work) and everything beyond the
-// window.  The products run as plain fp32 FMAs on shared-memory tiles (4 x 4
-// score and 4 x D/8 output register blocks per thread), with operands of
-// either input type widened to f32 on load; the output is written in the
-// input type.  The head size is a template bound DP in {32, 64, 96, 128, 256}
-// (zamba2's 80 runs at 96, masked per element), so no tile assumes a power
-// of two.
+// Design.  One CTA per (q tile, KV head, batch row); its rows (192 on the
+// bf16 route at head size 128, 128 at other sizes, 64 on the f32 route) are
+// the q_per_kv q heads of that KV head for consecutive query tokens, so GQA
+// shares every K/V tile across the group (mixtral's q_per_kv = 4 gives 48
+// tokens x 4 heads on the bf16 route).  Because positions can be in any
+// order, tile skipping works from ranges: the CTA knows the min / max
+// position of its queries; a key tile is skipped when every key lies after
+// every query (causal) or outside every query's window.  For contiguous
+// positions that skips the upper triangle and everything beyond the window.
+// The operand type picks the body:
+//   * bf16 (what serving runs): the tensor-core core of attn_tc.cuh (wgmma,
+//     64-key tiles in a cp.async ring).  Before it runs, each warp of the CTA
+//     marks 64-key tiles in two bitmaps: live (some key can meet some query
+//     of the CTA) and inner (every key exists and meets every query, so no
+//     per-element mask).  The CTAs start with the longest q tiles of every
+//     KV head.  The output is rounded to bf16 once, in the epilogue.
+//   * f32 (the parity route of the f32 token checks; tensor cores would round
+//     f32 operands to TF32): plain fp32 FMAs on 32-key shared-memory tiles
+//     (4 x 4 score and 4 x D/8 output register blocks per thread), head-size
+//     templates DP in {32, 64, 96, 128, 256}, masked per element; warp 0
+//     reduces each tile's min / max key position for the skip test.
 //
 // Bound on this card: 4 * H * D * (attended pairs) FLOPs against one read of
 // q, k, v and one write of o.  A serial prompt of a few thousand tokens is
-// far above the H100's ~295 FLOP/byte ridge, so operations bind.  This first
-// version runs both products on the fp32 CUDA cores, not the tensor cores,
-// so it sits far from that bound; moving them to wgmma with TMA-fed tiles is
-// the later step that attacks it.
+// far above the H100's ~295 FLOP/byte ridge, so operations bind (989
+// TFLOP/s bf16 on the tensor cores; the f32 route's FMAs reach a few
+// percent of it).
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at a 700 W power
+// limit: at mixtral width (S 6144, window 4096, GQA 4, D 128) the bf16
+// route takes 1.18 ms (233 TFLOP/s, 24 % of its 0.278 ms bound; SDPA with a
+// boolean window mask 1.92 ms), the f32 route 15.7 ms; at zamba2 width (S
+// 4096, causal, D 80) 0.43 ms (SDPA is_causal 0.29 ms).  Copying each K/V
+// tile from L2 into every CTA of its KV head, not the products or the
+// softmax, sets the bf16 route's time.
 #include <climits>
+#include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "attn_tc.cuh"
 #include "common.cuh"
 
 namespace {
 
 using repro::kNegInf;
 using repro::to_f32;
+namespace tc = repro::tc;
 
 constexpr int kRows = 64;  // (q token, q head) rows per CTA
 constexpr int kBK = 32;    // keys per tile
@@ -269,20 +284,208 @@ int launch(const void* q, const void* k, const void* v, const int* q_pos,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------ bf16: the tensor-core core
+
+// The position mask for tc::attend: tiles are visited from the CTA's
+// bitmaps, word w of both in bits[w] (x, live: some key may meet some query;
+// y, inner: every key exists and meets every query).
+struct PositionMask {
+  const int* k_pos;
+  const uint2* bits;
+  int sk, n_tiles, causal, window;
+  int qpos[2];
+  bool on[2];
+
+  struct Key {
+    int pos;
+    bool valid;
+  };
+
+  __device__ int next(int kt) const {
+    for (int t = kt / tc::kBK + 1; t < n_tiles;) {
+      const uint32_t w = bits[t >> 5].x >> (t & 31);
+      if (w) return (t + __ffs(w) - 1) * tc::kBK;
+      t = (t | 31) + 1;
+    }
+    return -1;
+  }
+  __device__ bool interior(int kt) const {
+    const int t = kt / tc::kBK;
+    return (bits[t >> 5].y >> (t & 31)) & 1u;
+  }
+  __device__ Key key(int j) const {
+    return j < sk ? Key{__ldg(k_pos + j), true} : Key{0, false};
+  }
+  __device__ bool ok(int slot, Key kk) const {
+    bool ok = on[slot] && kk.valid;
+    if (causal) ok = ok && qpos[slot] >= kk.pos;
+    if (window > 0) ok = ok && (long long)qpos[slot] - kk.pos < window;
+    return ok;
+  }
+};
+
+template <int DP>
+__global__ void __launch_bounds__(tc::Cta<DP>::kThreads, tc::Cta<DP>::kMinBlocks)
+    striped_attention_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const int* __restrict__ q_pos,
+    const int* __restrict__ k_pos, __nv_bfloat16* __restrict__ o, int sq,
+    int sk, int h, int kvh, int d, int qpk, int bq, int causal, int window,
+    float softcap, float scale) {
+  constexpr int kThreads = tc::Cta<DP>::kThreads;
+  // dynamic shared memory: the core's tiles, then the visit bitmaps, one
+  // bit per 64-key tile of each, interleaved by 32-bit word
+  extern __shared__ __align__(128) char tc_smem[];
+  const int n_tiles = (sk + tc::kBK - 1) / tc::kBK;
+  uint2* s_bits = reinterpret_cast<uint2*>(tc_smem + tc::Smem<DP>::kBytes);
+  __shared__ int s_range[2];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  // launch order: every KV head's q tile before the next q tile, the
+  // longest rows first under a causal mask, so long tiles do not form the tail
+  const int lin = blockIdx.x + gridDim.x * blockIdx.y;
+  const int g = lin % kvh;
+  const int tile = causal ? gridDim.x - 1 - lin / kvh : lin / kvh;
+  const int b = blockIdx.z;
+  const int t0 = tile * bq;
+  const int nq = min(bq, sq - t0);
+  const __nv_bfloat16* qb = q + (size_t)b * sq * h * d;
+  const __nv_bfloat16* kb = k + (size_t)b * sk * kvh * d + (size_t)g * d;
+  const __nv_bfloat16* vb = v + (size_t)b * sk * kvh * d + (size_t)g * d;
+  __nv_bfloat16* ob = o + (size_t)b * sq * h * d;
+
+  if (warp == 0) {  // position range of this tile's queries
+    int lo = INT_MAX, hi = INT_MIN;
+    for (int i = lane; i < nq; i += 32) {
+      const int p = q_pos[t0 + i];
+      lo = min(lo, p);
+      hi = max(hi, p);
+    }
+    lo = repro::warp_min(lo);
+    hi = repro::warp_max(hi);
+    if (lane == 0) {
+      s_range[0] = lo;
+      s_range[1] = hi;
+    }
+  }
+  for (int i = tid; i < (n_tiles + 31) / 32; i += kThreads) s_bits[i] = make_uint2(0u, 0u);
+  __syncthreads();
+  const long long q_lo = s_range[0], q_hi = s_range[1];
+  // visit bitmaps: one warp per tile, two keys per lane (unrolled so that
+  // the position loads of four tiles are in flight together)
+#pragma unroll 4
+  for (int t = warp; t < n_tiles; t += kThreads / 32) {
+    bool live = false;
+    int lo = INT_MAX, hi = INT_MIN;
+#pragma unroll
+    for (int e = 0; e < tc::kBK; e += 32) {
+      const int j = t * tc::kBK + e + lane;
+      if (j < sk) {
+        const int p = k_pos[j];
+        lo = min(lo, p);
+        hi = max(hi, p);
+        live |= (!causal || p <= q_hi) && (window <= 0 || q_lo - p < window);
+      }
+    }
+    live = __any_sync(0xffffffffu, live);
+    lo = repro::warp_min(lo);
+    hi = repro::warp_max(hi);
+    if (lane == 0 && live) {
+      const uint32_t bit = 1u << (t & 31);
+      atomicOr(&s_bits[t >> 5].x, bit);
+      const bool inner = (t + 1) * tc::kBK <= sk && (!causal || q_lo >= hi) &&
+                         (window <= 0 || q_hi - lo < window);
+      if (inner) atomicOr(&s_bits[t >> 5].y, bit);
+    }
+  }
+  __syncthreads();
+
+  PositionMask mask{k_pos, s_bits, sk, n_tiles, causal, window,
+                    {0, 0}, {false, false}};
+#pragma unroll
+  for (int sl = 0; sl < 2; ++sl) {
+    const int r = tc::frag_row(sl);
+    mask.on[sl] = r < bq * qpk && r / qpk < nq;
+    mask.qpos[sl] = mask.on[sl] ? q_pos[t0 + r / qpk] : 0;
+  }
+  auto q_src = [&](int r) -> const __nv_bfloat16* {
+    return r < bq * qpk && r / qpk < nq
+               ? qb + ((size_t)(t0 + r / qpk) * h + g * qpk + r % qpk) * d
+               : nullptr;
+  };
+  tc::Acc<DP> acc;
+  acc.clear();
+  tc::attend<DP>(tc_smem, q_src, kb, vb, (long long)kvh * d, sk, d, scale,
+                 softcap, mask, acc);
+
+  float inv[2];  // 1 / l, or 1 for a row without keys (o = 0)
+#pragma unroll
+  for (int sl = 0; sl < 2; ++sl) inv[sl] = acc.l[sl] != 0.f ? 1.f / acc.l[sl] : 1.f;
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc.o[i] *= inv[(i >> 1) & 1];
+  tc::store_rows<DP>(acc.o, [&](int r, int col, float4 x) {
+    if (r >= bq * qpk || r / qpk >= nq || col >= d) return;
+    const size_t row = (size_t)(t0 + r / qpk) * h + g * qpk + r % qpk;
+    uint2 w;
+    w.x = tc::pack_bf16(x.x, x.y);
+    w.y = tc::pack_bf16(x.z, x.w);
+    *reinterpret_cast<uint2*>(ob + row * d + col) = w;
+  });
+}
+
+template <int DP>
+int launch_tc(const void* q, const void* k, const void* v, const int* q_pos,
+              const int* k_pos, void* o, int b, int sq, int sk, int h, int kvh,
+              int d, int causal, int window, float softcap, float scale,
+              cudaStream_t stream) {
+  const int qpk = h / kvh;
+  const int bq = tc::Cta<DP>::kRows / qpk;
+  const long long n_words = ((sk + tc::kBK - 1) / tc::kBK + 31) / 32;
+  const long long smem = tc::Smem<DP>::kBytes + n_words * sizeof(uint2);
+  if (smem > INT_MAX) return (int)cudaErrorInvalidValue;
+  auto kern = striped_attention_tc_kernel<DP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((sq + bq - 1) / bq, kvh, b);
+  constexpr int threads = tc::Cta<DP>::kThreads;
+  kern<<<grid, threads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), q_pos, k_pos,
+      static_cast<__nv_bfloat16*>(o), sq, sk, h, kvh, d, qpk, bq, causal,
+      window, softcap, scale);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, const int* q_pos,
                const int* k_pos, void* o, int b, int sq, int sk, int h,
                int kvh, int d, int causal, int window, float softcap,
                float scale, cudaStream_t s) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {  // tensor cores
+    if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15)
+      return (int)cudaErrorMisalignedAddress;
+#define REPRO_LAUNCH(DP)                                                   \
+  return launch_tc<DP>(q, k, v, q_pos, k_pos, o, b, sq, sk, h, kvh, d,     \
+                       causal, window, softcap, scale, s)
+    switch (tc::head_template(d)) {
+      case 64: REPRO_LAUNCH(64);
+      case 80: REPRO_LAUNCH(80);
+      case 128: REPRO_LAUNCH(128);
+      default: REPRO_LAUNCH(256);
+    }
+#undef REPRO_LAUNCH
+  } else {  // f32: the fp32-FMA body
 #define REPRO_LAUNCH(DP)                                                   \
   return launch<T, DP>(q, k, v, q_pos, k_pos, o, b, sq, sk, h, kvh, d,     \
                        causal, window, softcap, scale, s)
-  if (d <= 32) REPRO_LAUNCH(32);
-  if (d <= 64) REPRO_LAUNCH(64);
-  if (d <= 96) REPRO_LAUNCH(96);
-  if (d <= 128) REPRO_LAUNCH(128);
-  REPRO_LAUNCH(256);
+    if (d <= 32) REPRO_LAUNCH(32);
+    if (d <= 64) REPRO_LAUNCH(64);
+    if (d <= 96) REPRO_LAUNCH(96);
+    if (d <= 128) REPRO_LAUNCH(128);
+    REPRO_LAUNCH(256);
 #undef REPRO_LAUNCH
+  }
 }
 
 }  // namespace
@@ -293,7 +496,9 @@ extern "C" {
 // all of one dtype (0 = float32, 1 = bfloat16); q_pos [sq] and k_pos [sk]
 // int32 in any order.  causal != 0 masks q_pos < k_pos; window <= 0 and
 // softcap <= 0 disable those masks.  Requires d % 8 == 0, d <= 256,
-// h % kvh == 0, h / kvh <= 64, b <= 65535 and sq, sk >= 1.  Returns the
+// h % kvh == 0, h / kvh <= 64, b <= 65535 and sq, sk >= 1; for bfloat16 also
+// 16-byte-aligned q, k, v and o, and two bits per 64 keys in the CTA's shared
+// memory beside the tiles (sk up to about nine million).  Returns the
 // launch's cudaError_t.
 int repro_striped_attention(const void* q, const void* k, const void* v,
                             const int* q_pos, const int* k_pos, void* o, int b,

@@ -15,6 +15,9 @@ lengths past the shard, and the window convention shared by K4 and K5.
 The kernels themselves run on the card (`chip_smoke.py` and
 tests/test_torch_kernels_gpu.py).
 """
+import math
+import re
+
 import numpy as np
 import pytest
 
@@ -396,7 +399,106 @@ def test_build_key_covers_included_headers(tmp_path):
     assert key2 != key
     src.write_text('#include <cuda_runtime.h>\n#include "a.cuh"\nint k2;\n')
     assert _build.source_key(src) != key2
-    # the shipped attention kernels share csrc/common.cuh
-    for name in ("striped_attention", "flash_decode"):
+    # the shipped attention kernels share csrc/common.cuh; K4 and K1 / K3
+    # also share the tensor-core core csrc/attn_tc.cuh, which includes it
+    for name, headers in (("striped_attention", ["attn_tc.cuh", "common.cuh"]),
+                          ("flash_prefill", ["attn_tc.cuh", "common.cuh"]),
+                          ("flash_decode", ["common.cuh"])):
         files = [p.name for p in _build.source_files(_build.CSRC / f"{name}.cu")]
-        assert files == ["common.cuh", f"{name}.cu"]
+        assert files == headers + [f"{name}.cu"]
+
+
+_PROTO = re.compile(r"^(int|const char\*)\s+(repro_\w+)\(([^)]*)\)", re.M)
+
+
+@pytest.mark.parametrize("name", sorted(_build._SIGNATURES))
+def test_c_prototypes_match_ctypes_table(name):
+    """Every `extern "C"` entry point of csrc/<name>.cu takes the argument
+    kinds (pointer, int, float) that `_build._SIGNATURES` hands ctypes, in
+    order, and the table names exactly those entry points: a drift would
+    pass garbage to the card, and nothing on the CPU calls the kernels."""
+    text = (_build.CSRC / f"{name}.cu").read_text()
+    protos = _PROTO.findall(text[text.index('extern "C" {'):])
+    table = _build._SIGNATURES[name]
+    assert sorted(fn for _, fn, _ in protos) == sorted(table)
+    for ret, fn, args in protos:
+        kinds = []
+        for arg in args.split(","):
+            decl = " ".join(arg.split())
+            kinds.append(_build._P if "*" in decl else
+                         _build._F if decl.startswith("float ") else
+                         _build._I if decl.startswith("int ") else decl)
+        assert kinds == table[fn], fn
+        assert (ret == "const char*") == fn.endswith("_error_string"), fn
+
+
+# ------------------------------------------------- the bf16 tensor-core route
+
+
+def _tc_emulation(q, k, v, mask, *, drop_tile=None):
+    """Plain-torch emulation of the bf16 tensor-core numerics of K1 / K3 /
+    K4 (`csrc/attn_tc.cuh`): f32 Q K^T of bf16 operands, online softmax over
+    64-key tiles with the reference's conventions, each tile's P rounded to
+    bf16 before P V, l summed from the f32 P.  `drop_tile` skips one tile."""
+    sq, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    m = torch.full((sq,), -math.inf)
+    l = torch.zeros(sq)
+    o = torch.zeros(sq, d)
+    for i, t0 in enumerate(range(0, k.shape[0], 64)):
+        if i == drop_tile:
+            continue
+        s = torch.where(mask[:, t0:t0 + 64], (q @ k[t0:t0 + 64].T) * scale,
+                        torch.tensor(-1e30))
+        m_blk = s.max(dim=1).values
+        m_new = torch.maximum(m, m_blk)
+        m_safe = m_new.clamp_min(-1e29)
+        alpha = torch.where(m <= -5e29, torch.zeros(()), torch.exp(m - m_safe))
+        p = torch.exp(s - m_safe[:, None])
+        l = alpha * l + p.sum(dim=1)
+        o = alpha[:, None] * o + p.bfloat16().float() @ v[t0:t0 + 64]
+        m = torch.where(m_blk <= -5e29, m, m_new)
+    return o / torch.where(l == 0, torch.ones(()), l)[:, None]
+
+
+def _tc_case(d, seed, s=300):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=(s, d)).astype(np.float32))
+               .bfloat16().float() for _ in range(3))
+    i = torch.arange(s)
+    return q, k, v, i[:, None] >= i[None, :]
+
+
+def _tc_within_bound(got, want, v):
+    diff = (got - want).abs()
+    return (diff.max().item() <= 1e-4 + 2.0 ** -8 * v.abs().max().item()
+            and diff.mean().item() <= 1e-3)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_tc_tolerance_holds_for_bf16_rounding_of_p(d, seed):
+    """The bound the card's checks use for the bf16 route (max abs err
+    <= 1e-4 + 2^-8 max|v|, mean <= 1e-3, against the f32 plain version of
+    the same bf16 inputs) holds for the emulated tensor-core numerics."""
+    q, k, v, mask = _tc_case(d, seed)
+    want = tA.finalize_partial(tA.partial_attention(
+        q[None, :, None], k[None, :, None], v[None, :, None], mask[None]))[0, :, 0]
+    assert _tc_within_bound(_tc_emulation(q, k, v, mask), want, v)
+
+
+@pytest.mark.parametrize("fault", ["drop_tile", "shift_diagonal"])
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_tc_tolerance_catches_a_wrong_kernel(d, fault):
+    """The same bound rejects an emulation that skips one key tile or moves
+    the causal diagonal by one key: it is tight enough to catch the faults a
+    tile walk or a mask can make."""
+    q, k, v, mask = _tc_case(d, 0)
+    want = tA.finalize_partial(tA.partial_attention(
+        q[None, :, None], k[None, :, None], v[None, :, None], mask[None]))[0, :, 0]
+    if fault == "drop_tile":
+        got = _tc_emulation(q, k, v, mask, drop_tile=2)
+    else:
+        i = torch.arange(q.shape[0])
+        got = _tc_emulation(q, k, v, i[:, None] + 1 >= i[None, :])
+    assert not _tc_within_bound(got, want, v)

@@ -4,11 +4,16 @@ They import no JAX, so they run on a machine with only PyTorch::
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_gpu.py
 
-Tolerance 2e-5 atol on normalized outputs and partials at these small
-shapes: bf16 operands are widened to f32 in both versions, so the kernel
-and the plain version compute the same f32 math in another order.  K4
-writes bf16 outputs for bf16 inputs, so there the two may also sit one bf16
-step apart (2^-7 relative).
+Tolerances.  f32 operands (the fp32-FMA bodies, and K2 / K5 in either
+type): 2e-5 atol on normalized outputs and partials at these small shapes —
+the same f32 math in another order.  bf16 operands of K1, K3 and K4 run on
+the tensor cores (`csrc/attn_tc.cuh`): Q K^T of bf16 operands accumulates
+exactly in f32, but each softmax weight is rounded to bf16 once before P V,
+which costs at most 2^-9 of it, so the normalized output may move by
+2^-9 max|v|; the bound is 1e-4 + 2^-8 max|v| (the factor 2 covers the
+rescale by alpha), and the mean error must stay below 1e-3.  K4 writes bf16
+outputs, so they may also sit one bf16 step apart (2^-7 |plain|).  m keeps
+1e-4 absolute, l 1e-4 relative, and empty rows must match.
 """
 import numpy as np
 import pytest
@@ -45,6 +50,33 @@ def _close(got, want, atol=ATOL):
     np.testing.assert_allclose(got[fin], want[fin], atol=atol)
 
 
+def _close_tc(got, want, v, bf16_out=False):
+    """The bf16 tensor-core route: the output within 1e-4 + 2^-8 max|v|
+    (plus 2^-7 |plain| for a bf16 output), mean error below 1e-3."""
+    got, want = got.float().cpu(), want.float().cpu()
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    diff = (got - want).abs()
+    tol = 1e-4 + 2.0 ** -8 * v.float().abs().max().item()
+    bound = tol + (2.0 ** -7 * want.abs() if bf16_out else 0.0)
+    assert bool((diff <= bound).all()), (diff.max().item(), tol)
+    assert diff.mean().item() <= 1e-3, diff.mean().item()
+
+
+def _close_partial_tc(got, want, v):
+    """Carried (o, m, l) on the tensor-core route: o / l as `_close_tc`, m
+    1e-4 absolute, l 1e-4 relative, the same empty rows."""
+    (o, m, l), (wo, wm, wl) = got, want
+    fin = torch.isfinite(wm)
+    assert torch.equal(torch.isfinite(m), fin)
+    assert (m[fin] - wm[fin]).abs().max().item() <= 1e-4 if fin.any() else True
+    assert ((l - wl).abs() <= 1e-4 * wl.abs()).all()
+
+    def fin_o(o_, l_):
+        return o_ / torch.where(l_ == 0, torch.ones_like(l_), l_)[..., None]
+
+    _close_tc(fin_o(o, l), fin_o(wo, wl), v)
+
+
 def _pool_case(seed, b, page, n_pages, kvh, d):
     rng = np.random.default_rng(seed)
     cap = n_pages * page
@@ -79,15 +111,16 @@ def cuda_device():
 @pytest.mark.parametrize("kvh,window,softcap", [(4, None, None), (2, 7, 5.0)])
 def test_kernels_match_plain_on_card(cuda_device, dtype, kvh, window, softcap):
     """K1, K3 and K2 on CUDA tensors against their plain versions on the
-    same inputs (f32 2e-5; bf16 operands are widened to f32 in both, so the
-    same tolerance holds)."""
+    same inputs (f32 2e-5; bf16 K1 / K3 run on the tensor cores: the
+    module's bf16 bound; bf16 K2 widens to f32 in both: 2e-5)."""
     dt = getattr(torch, dtype)
+    tc = dt == torch.bfloat16
     q, k, v = (x.to(cuda_device, dt) for x in _t(*_qkv(7, T, H, kvh, D)))
     got = tpfp.packed_flash_prefill(q, k, v, OFFSETS, window=window,
                                     softcap=softcap)
     want = tpfp.packed_flash_prefill_plain(q, k, v, OFFSETS, window=window,
                                            softcap=softcap)
-    _close(got, want)
+    _close_tc(got, want, v) if tc else _close(got, want)
     n = 2
     offs = [tstriped.shard_offsets(OFFSETS, n, s) for s in range(n)]
     carry = None
@@ -98,8 +131,11 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, kvh, window, softcap):
             q[1::n], k[c::n], v[c::n], offs[1], offs[c], carry, **kw)
         want = tpfp.packed_flash_prefill_ring_chunk_plain(
             q[1::n], k[c::n], v[c::n], offs[1], offs[c], carry, **kw)
-        for g_, w_ in zip(got, want):
-            _close(g_, w_)
+        if tc:
+            _close_partial_tc(got, want, v)
+        else:
+            for g_, w_ in zip(got, want):
+                _close(g_, w_)
         carry = got
     for page in (1, 8):
         qd, kp, vp, table, lengths, pos = _pool_case(8, 5, page, 80 // page,
@@ -143,9 +179,8 @@ def test_attention_kernels_match_plain_on_card(cuda_device, dtype, h, kvh, d,
         assert got.dtype == dt
         if dt == torch.float32:
             _close(got, want)
-        else:  # the same f32 result rounded once: one bf16 step apart at most
-            diff = (got.float() - want.float()).abs()
-            assert (diff <= ATOL + 2.0 ** -7 * want.float().abs()).all()
+        else:  # tensor cores, and a bf16 output one bf16 step apart at most
+            _close_tc(got, want, v, bf16_out=True)
     qd = rand(4, 1, h, d)
     kd, vd = rand(4, sk, kvh, d), rand(4, sk, kvh, d)
     off = 9
@@ -157,3 +192,94 @@ def test_attention_kernels_match_plain_on_card(cuda_device, dtype, h, kvh, d,
     for g_, w_ in zip(got, want):
         _close(g_, w_)
     assert torch.isinf(got.m[0]).all() and (got.l[0] == 0).all()
+
+
+# (D, q_per_kv, Sq, Sk): ragged tile edges (not multiples of 64) at the head
+# sizes of the served models (80: zamba2) and GQA groups that do not divide
+# the rows of a CTA (3) or fill a CTA with few tokens (16); D = 96 runs the
+# bf16 head-size template 128 zero-padded, D = 256 the widest one
+EDGE_CASES = [(64, 1, 70, 70), (80, 3, 131, 131), (128, 4, 100, 257),
+              (128, 16, 45, 45), (80, 1, 257, 190), (96, 4, 70, 70),
+              (256, 2, 70, 130)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,qpk,sq,sk", EDGE_CASES)
+def test_attention_tile_edges_on_card(cuda_device, dtype, d, qpk, sq, sk):
+    """K4, K1 and K3 where tiles are ragged: Sq, Sk not multiples of 64
+    (K4 queries at the last Sq positions), a window edge inside a key tile
+    (window 37), segment edges inside key tiles (K1 / K3), GQA groups of 1,
+    3, 4 and 16; a full ring of 3 shards for K3."""
+    dt = getattr(torch, dtype)
+    tc = dt == torch.bfloat16
+    kvh = 2
+    h = kvh * qpk
+    rng = np.random.default_rng(d * 1000 + qpk)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+            cuda_device, dt)
+
+    def check(got, want, v):
+        _close_tc(got, want, v, bf16_out=tc and got.dtype == dt) if tc else \
+            _close(got, want)
+
+    q, k, v = rand(1, sq, h, d), rand(1, sk, kvh, d), rand(1, sk, kvh, d)
+    qp = torch.arange(max(sk - sq, 0), max(sk - sq, 0) + sq, dtype=torch.int32,
+                      device=cuda_device)
+    kp = torch.arange(sk, dtype=torch.int32, device=cuda_device)
+    for causal, window, softcap in [(True, None, None), (True, 37, None),
+                                    (False, None, 20.0)]:
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        check(tsa.striped_flash_attention(q, k, v, qp, kp, **kw),
+              tsa.striped_flash_attention_plain(q, k, v, qp, kp, **kw), v)
+    # K1 over a packed batch of 3 * 64 + 9 tokens with segment edges inside
+    # key tiles and an empty segment
+    t = 3 * 64 + 9
+    off = np.array([0, 13, 13, 77, t - 40, t - 3], np.int32)
+    q1, k1, v1 = rand(t, h, d), rand(t, kvh, d), rand(t, kvh, d)
+    for window in (None, 37):
+        check(tpfp.packed_flash_prefill(q1, k1, v1, off, window=window),
+              tpfp.packed_flash_prefill_plain(q1, k1, v1, off, window=window),
+              v1)
+    # K3: a full ring over n = 3 shards (t divisible by 3), every step
+    # against the plain step on the same carry
+    n = 3
+    offs = [tstriped.shard_offsets(off, n, r) for r in range(n)]
+    for r in range(n):
+        carry = None
+        for step in range(n):
+            c = tstriped.ring_chunk_schedule(n)[step][r]
+            args = (q1[r::n].contiguous(), k1[c::n].contiguous(),
+                    v1[c::n].contiguous(), offs[r], offs[c])
+            kw = dict(q_shard=r, k_shard=c, n_shards=n, window=37)
+            got = tpfp.packed_flash_prefill_ring_chunk(*args, carry, **kw)
+            want = tpfp.packed_flash_prefill_ring_chunk_plain(*args, carry, **kw)
+            if tc:
+                _close_partial_tc(got, want, v1)
+            else:
+                for g_, w_ in zip(got, want):
+                    _close(g_, w_)
+            carry = want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 100_000])
+def test_striped_attention_long_keys_on_card(cuda_device, window):
+    """K4 on bf16 over 150k keys (2344 key tiles): the per-CTA visit bitmaps
+    are sized from Sk, so the last queries still see every key they may."""
+    rng = np.random.default_rng(11)
+    sq, sk, d = 40, 150_000, 64
+
+    def rand(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+            cuda_device, torch.bfloat16)
+
+    q, k, v = rand(1, sq, 2, d), rand(1, sk, 1, d), rand(1, sk, 1, d)
+    qp = torch.arange(sk - sq, sk, dtype=torch.int32, device=cuda_device)
+    kp = torch.arange(sk, dtype=torch.int32, device=cuda_device)
+    kw = dict(causal=True, window=window)
+    _close_tc(tsa.striped_flash_attention(q, k, v, qp, kp, **kw),
+              tsa.striped_flash_attention_plain(q, k, v, qp, kp, **kw), v,
+              bf16_out=True)
