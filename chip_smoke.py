@@ -18,14 +18,20 @@ Phases (each one fails the run with a non-zero exit; none is caught):
      B = 1 and 8k contexts, and at B = 16 with k_pos_offset > 0, a window
      and empty rows; plus small variants (GQA, non-causal, window, softcap,
      striped and unsorted positions, B > 1, f32, empty rows);
-  3. time each kernel, its plain version and (K1, K4) the library call
-     `scaled_dot_product_attention` with the same mask — a yardstick only,
-     never called by the port — against the least time the card could take
-     (bytes over 3.35 TB/s, operations over 989 TFLOP/s bf16); for K1, K3
-     and K4 also the achieved TFLOP/s, the share of the bound, the f32
-     route's time at the same shapes, and, in the text line only, the time
-     their previous (fp32-FMA) design took on the H100 (``PREV_MS``, not
-     measured in this run);
+  3. time each kernel, its plain version and the library call that computes
+     the same function — `scaled_dot_product_attention` with the same mask
+     (K1, K4), `aten._scaled_dot_product_flash_attention` over the valid
+     keys (K5) — a yardstick only, never called by the port — against the
+     least time the card could take (bytes over 3.35 TB/s, operations over
+     989 TFLOP/s bf16); for K1, K3 and K4 also the achieved TFLOP/s, the
+     share of the bound and the f32 route's time at the same shapes.  K2 and
+     K5 (and K5's flash call) are timed as device time per call: CUDA events
+     around the replay of a CUDA graph of 20 calls (the profiler's kernel
+     durations if capture is refused), with K5's calls rotated over copies
+     of k / v that exceed 64 MB, so L2 is cold as it is in serving; their
+     eager wrapper's time per call is printed beside.  The text lines also
+     give the time each kernel's previous design took on the H100
+     (``PREV_MS``, not measured in this run);
   4. serve full-width, full-depth lwm-7b in bf16 (random weights drawn on
      the card from a seed) with 4 elastic instances: 8 requests of 512-2048
      prompt tokens, 16 new tokens each; K1, K2 and K3 must be launched and
@@ -54,6 +60,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import itertools
 import json
 import subprocess
 import sys
@@ -77,10 +84,13 @@ RTOL_L = 1e-4  # softmax denominators (up to thousands): relative
 # output may move by 2^-9 max|v|; the factor 2 covers the rescale by alpha
 TC_P_ROUND = 2.0 ** -8  # times max|v|, on top of TOL_OUT
 TOL_MEAN = 1e-3  # mean abs error of the normalized output, tensor-core route
-# the same kernels' times in their previous design (fp32-FMA bodies on bf16
-# operands; this script on an NVIDIA H100 80GB HBM3 at 700 W), printed beside
-# the new ones in the text lines only: the JSON table holds what this run measured
-PREV_MS = {"K1": 6.711, "K3": 0.861, "K4": 15.889, "K4 zamba2": 6.971}
+# the kernels' times in their previous design (K1 / K3 / K4: fp32-FMA bodies
+# on bf16 operands; K2 / K5: one CTA per request and KV head; this script on
+# an NVIDIA H100 80GB HBM3 at 700 W), printed beside the new ones in the text
+# lines only: the JSON table holds what this run measured
+PREV_MS = {"K1": 6.711, "K3": 0.861, "K4": 15.889, "K4 zamba2": 6.971,
+           "K2": 2.541, "K5": 0.8049, "K5 zamba2": 1.536}
+COLD_BYTES = 64 * 2**20  # K / V copies a timed K5 call rotates over: > L2 (50 MB)
 
 # ------------------------------------------------------------------ helpers
 
@@ -98,6 +108,49 @@ def _time_ms(fn, reps=10, warmup=2):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def _device_ms(call, calls=20, reps=5):
+    """Device time per call of ``call(i)``: CUDA events around replays of a
+    CUDA graph of ``calls`` calls (i = 0 .. calls - 1), so the host's Python
+    is not in the time; where capture is refused, the profiler's kernel
+    durations over the same calls.  Returns (ms, how it was measured)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capturing stream
+        for i in range(3):
+            call(i)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for i in range(calls):
+                call(i)
+    except RuntimeError as e:  # capture refused: the profiler's kernel times
+        torch.cuda.synchronize()
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(calls):
+                call(i)
+            torch.cuda.synchronize()
+        us = sum(getattr(e_, "device_time_total", getattr(e_, "cuda_time_total", 0.0))
+                 for e_ in prof.key_averages())
+        return us / 1e3 / calls, (f"profiler kernel durations over {calls} calls "
+                                  f"(graph capture refused: {str(e)[:60]})")
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    del graph
+    return a.elapsed_time(b) / (reps * calls), f"device time, graph of {calls} calls"
 
 
 def _rates(flops, ms, bound_ms):
@@ -185,6 +238,19 @@ def _check(name, got, want, log, v=None):
 # ------------------------------------------------------------------- phases
 
 
+def _short_kernel_name(mangled):
+    """A ptxas entry name, demangled (``c++filt``) without the namespaces
+    and parameter lists; the mangled name where c++filt is missing."""
+    try:
+        name = subprocess.run(["c++filt", "-p"], input=mangled, capture_output=True,
+                              text=True, check=True).stdout.strip()
+    except (OSError, subprocess.CalledProcessError):
+        return mangled
+    for junk in ("repro::decode::", "repro::tc::", "repro::", "(anonymous namespace)::"):
+        name = name.replace(junk, "")
+    return name
+
+
 def phase_build():
     from repro_torch.kernels import _build
 
@@ -192,10 +258,17 @@ def phase_build():
     reports = _build.build_all()
     print(f"[build] {len(reports)} kernel libraries for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s")
-    for name, rep in reports.items():
+    for name, rep in reports.items():  # one line per kernel: registers, spills
+        entry, spill = None, ""
         for line in rep.splitlines():
-            if "Compiling entry" in line or "Used" in line or "spill" in line:
-                print(f"[ptxas {name}] {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "spill" in line:
+                spill = line.split(":")[-1].strip()
+            elif "Used" in line and entry:
+                used = line.split(":")[-1].strip()
+                print(f"[ptxas {name}] {_short_kernel_name(entry)}: {used}; {spill}")
+                entry = None
 
 
 def phase_kernels(rec, card):
@@ -204,6 +277,7 @@ def phase_kernels(rec, card):
     import torch.nn.functional as F
 
     from repro_torch.core import striped
+    from repro_torch.kernels import decode_split
     from repro_torch.kernels import paged_flash_decode as pfd
     from repro_torch.kernels import paged_flash_prefill as pfp
 
@@ -355,13 +429,21 @@ def phase_kernels(rec, card):
         nbytes = (2 * int(ctx.sum()) * KVH * D * 4 + B * H * D * 2
                   + B * H * (D + 2) * 4 + int(npg.sum()) * 4 + B * 4)
         flops = 4 * H * D * int(ctx.sum())
-        ms = _time_ms(lambda: pfd.paged_flash_decode_partial(qd, kp, vp, bt, ln), 20)
+        # the pool (2 x 1.1 GB at page 1) is far larger than L2: cold anyway
+        ms, how = _device_ms(lambda i: pfd.paged_flash_decode_partial(qd, kp, vp, bt, ln))
+        eager_ms = _time_ms(lambda: pfd.paged_flash_decode_partial(qd, kp, vp, bt, ln), 20)
         plain_ms = _time_ms(lambda: pfd.paged_flash_decode_partial_plain(
             qd, kp, vp, bt, ln), 5)
         bound = max(nbytes / HBM_BPS, flops / PEAK_BF16) * 1e3
+        n_splits, chunk = decode_split.plan(B, KVH, bt.shape[1] * page,
+                                            q_per_kv=H // KVH,
+                                            n_sm=decode_split.sm_count(dev))
         print(f"[time {card}] K2 B={B} page={page} sum_ctx={int(ctx.sum())}: kernel "
-              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms "
-              f"(bytes; {nbytes / 1e6:.1f} MB)")
+              f"{ms:.4f} ms ({how}; previous design, earlier run: {PREV_MS['K2']} ms), "
+              f"eager wrapper {eager_ms:.4f} ms/call, {100 * bound / ms:.1f}% of its "
+              f"bound, plain {plain_ms:.3f} ms, bound {bound:.4f} ms (bytes; "
+              f"{nbytes / 1e6:.1f} MB), plan {n_splits} split(s) of {chunk} keys, "
+              f"{B * KVH * n_splits} CTAs")
         if page == 1:  # the engine's default page size
             rec["K2"] = dict(
                 name="paged_flash_decode_partial", route="cuda",
@@ -450,12 +532,60 @@ def _valid_keys(lens, s, offset, window):
     return n
 
 
+def _k5_flash(q, kvs, ln, s, off, window, log, tag):
+    """K5's function as one PyTorch call, timed as the kernel is: flash
+    attention of each GQA group's q rows over the row's valid keys returns
+    (output, logsumexp), which is the partial (o = output, m = logsumexp,
+    l = 1).  Held once against the plain partial, both finalized.  Returns
+    (ms, how it was timed, the call's name)."""
+    import torch
+
+    from repro_torch.kernels import flash_decode as fd
+
+    b, _, h, d = q.shape
+    kvh = kvs[0][0].shape[2]
+    n = int(ln[0])  # B = 1: the row's valid keys [lo, hi) in shard coordinates
+    hi = max(0, min(s, n - off))
+    lo = min(hi, max(0, n - window + 1 - off)) if window else 0
+    q4 = q.view(b, kvh, h // kvh, d)
+    views = [(k[:, lo:hi].transpose(1, 2), v[:, lo:hi].transpose(1, 2)) for k, v in kvs]
+    name = "aten._scaled_dot_product_flash_attention"
+
+    def call(kk, vv):
+        return torch.ops.aten._scaled_dot_product_flash_attention(
+            q4, kk, vv, 0.0, False, False)[:2]
+
+    try:
+        out, lse = call(*views[0])
+    except RuntimeError:  # refused on this card's torch: the efficient kernel
+        name = ("aten._scaled_dot_product_efficient_attention (the flash call "
+                "was refused)")
+
+        def call(kk, vv):
+            o_, lse_ = torch.ops.aten._scaled_dot_product_efficient_attention(
+                q4, kk, vv, None, True)[:2]
+            return o_, lse_[..., :h // kvh]
+
+        out, lse = call(*views[0])
+    want = fd.flash_decode_partial_plain(q, kvs[0][0], kvs[0][1], ln,
+                                         k_pos_offset=off, window=window)
+    _check(f"K5 {tag}: {name.split()[0]} vs plain (finalized)",
+           out.reshape(b, 1, h, d), _fin(want.o, want.l), log, v=views[0][1])
+    lse_err = (lse.reshape(b, 1, h) - want.m - torch.log(want.l)).abs().max().item()
+    log.append(f"  K5 {tag}: its logsumexp vs plain m + log l: max abs err "
+               f"{lse_err:.3e} (tol 1e-3)")
+    assert lse_err <= 1e-3, lse_err
+    ms, how = _device_ms(lambda i: call(*views[i % len(views)]))
+    return ms, how, name
+
+
 def phase_attention_kernels(rec, card):
     """K4 and K5: checks (phase 2) and timings (phase 3) at the widths of
     the serial path's models."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import decode_split
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import striped_attention as sa
 
@@ -577,20 +707,43 @@ def phase_attention_kernels(rec, card):
         nbytes = (2 * n_valid * kvh * d * k.element_size() + b * h * d * q.element_size()
                   + b * h * (d + 2) * 4 + b * 4)
         flops = 4 * h * d * n_valid
-        ms = _time_ms(lambda: fd.flash_decode_partial(q, k, v, ln, **kw), 20)
+        # cold L2, as in serving (each decode step uploads the cache anew):
+        # the timed calls rotate over copies of k / v that exceed 64 MB
+        n_cp = max(2, -(-COLD_BYTES // (k.nbytes + v.nbytes)))
+        kvs = [(k, v)] + [(k.clone(), v.clone()) for _ in range(n_cp - 1)]
+        ms, how = _device_ms(lambda i: fd.flash_decode_partial(q, *kvs[i % n_cp], ln, **kw))
+        turn = itertools.count()
+        eager_ms = _time_ms(lambda: fd.flash_decode_partial(
+            q, *kvs[next(turn) % n_cp], ln, **kw), 20)
         plain_ms = _time_ms(lambda: fd.flash_decode_partial_plain(q, k, v, ln, **kw), 5)
         bound = max(nbytes / HBM_BPS, flops / PEAK_BF16) * 1e3
         by = "bytes" if nbytes / HBM_BPS >= flops / PEAK_BF16 else "operations"
-        print(f"[time {card}] K5 {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound:.5f} ms ({by}; {n_valid} valid keys, {nbytes / 1e6:.2f} MB, "
-              f"{b * kvh} CTAs)")
+        lib_ms, lib = None, ""
+        if b == 1:  # the serial path's shape: one flash call over the valid keys
+            lib_ms, lib_how, lib_name = _k5_flash(q, kvs, ln, s, off, window, log,
+                                                  tag)
+            lib = f", {lib_name} {lib_ms:.4f} ms ({lib_how})"
+        n_splits, chunk = decode_split.plan(
+            b, kvh, s if window is None else min(s, window - 1), q_per_kv=h // kvh,
+            n_sm=decode_split.sm_count(dev))
+        ctas = b * kvh * -(-(h // kvh) // decode_split.rows_per_cta(h // kvh)) * n_splits
+        prev = {"mixtral B=1 ctx=5000 window=4096": "K5",
+                "zamba2 B=1 ctx=8192": "K5 zamba2"}.get(tag)
+        prev = f"; previous design, earlier run: {PREV_MS[prev]} ms" if prev else ""
+        print(f"[time {card}] K5 {tag}: kernel {ms:.4f} ms ({how}, cold L2: "
+              f"{n_cp} k/v copies, {n_cp * (k.nbytes + v.nbytes) / 1e6:.0f} MB{prev}), "
+              f"eager wrapper {eager_ms:.4f} ms/call, {100 * bound / ms:.1f}% of its "
+              f"bound, plain {plain_ms:.4f} ms{lib}, bound {bound:.5f} ms ({by}; "
+              f"{n_valid} valid keys, {nbytes / 1e6:.2f} MB; plan {n_splits} split(s) "
+              f"of {chunk} keys, {ctas} CTAs)")
         if tag.startswith("mixtral B=1 ctx=5000"):
             rec["K5"] = dict(
                 name="flash_decode_partial", route="cuda",
                 source="src/repro_torch/csrc/flash_decode.cu",
                 replaces="src/repro/kernels/flash_decode.py:98",
                 ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                library_ms=None)
+                library_ms=lib_ms)
+        del kvs
     rec["K5"]["max_abs_err"] = k5_err
     print("\n".join(log))
     torch.cuda.empty_cache()

@@ -85,22 +85,6 @@ __host__ __device__ constexpr int head_template(int d) {
 
 // ---------------------------------------------------------------- PTX
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; valid == false zero-fills the 16 bytes
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 // make this thread's generic-proxy shared-memory writes (cp.async) visible
 // to the async proxy that wgmma reads through
 __device__ __forceinline__ void fence_async_smem() {
@@ -131,14 +115,8 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t s
          (static_cast<uint64_t>(sbo >> 4) << 32);
 }
 
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x on the special-function unit (relative error 2^-22; 2^-inf = 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
+// smem_u32, cp_async16, cp_async_commit, cp_async_wait, kLog2e and ex2:
+// common.cuh
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half

@@ -49,7 +49,8 @@ _SIGNATURES = {
         "repro_flash_prefill_error_string": [_I],
     },
     "paged_decode": {
-        "repro_paged_decode": [_P] * 10 + [_I] * 9 + [_F, _F, _P],
+        "repro_paged_decode": [_P] * 11 + [_I] * 12 + [_F, _F, _P],
+        "repro_paged_decode_merge": [_P] * 4 + [_I] * 4 + [_P],
         "repro_paged_decode_error_string": [_I],
     },
     "striped_attention": {
@@ -57,7 +58,8 @@ _SIGNATURES = {
         "repro_striped_attention_error_string": [_I],
     },
     "flash_decode": {
-        "repro_flash_decode": [_P] * 7 + [_I] * 9 + [_F, _F, _P],
+        "repro_flash_decode": [_P] * 8 + [_I] * 12 + [_F, _F, _P],
+        "repro_flash_decode_merge": [_P] * 4 + [_I] * 4 + [_P],
         "repro_flash_decode_error_string": [_I],
     },
 }
@@ -160,10 +162,12 @@ def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def check(lib: ctypes.CDLL, fn: str, err: int) -> None:
-    """Raise on a nonzero cudaError_t returned by an entry point: a refused
+def check(lib: ctypes.CDLL, fn: str, err: int, stage: str = "") -> None:
+    """Raise on a nonzero cudaError_t returned by an entry point of
+    csrc/<fn>.cu (``stage`` names which, where it has several): a refused
     launch never runs, and a later synchronize would not report it."""
     if err != 0:
         msg = getattr(lib, f"repro_{fn}_error_string")(err).decode()
-        raise RuntimeError(f"CUDA kernel {fn}: error {err} ({msg})")
+        what = f"{fn} {stage}" if stage else fn
+        raise RuntimeError(f"CUDA kernel {what}: error {err} ({msg})")
 

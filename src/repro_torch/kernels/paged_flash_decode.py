@@ -1,12 +1,16 @@
 """Batched ragged flash-decode over the paged KV pool (K2).
 
 PyTorch counterpart of `repro/kernels/paged_flash_decode.py`, run by the
-hand-written CUDA kernel in `csrc/paged_decode.cu`.  The wrapper:
+hand-written CUDA kernel in `csrc/paged_decode.cu` (the split-K decode core
+`csrc/decode_splitk.cuh`, planned by `kernels/decode_split.py`).  The
+wrapper:
 
   * on a CPU tensor, returns the plain PyTorch version (block-table gather +
     dense masked partial);
-  * on a CUDA tensor, launches the kernel (counted in `launch_counts`) or
-    raises on what the kernel does not take.  Nothing falls back.
+  * on a CUDA tensor, launches the kernel — pass 1 and, when the plan cuts
+    the requests' tokens into several splits, the merge; one call counts
+    one in `launch_counts` — or raises on what the kernel does not take
+    (d % 8 != 0 among them).  Nothing falls back.
 
 Contract (mirrors `repro_torch.kvcache.pool.KVPool`):
   * ``q`` [B, 1, H, D]; ``k_pages``/``v_pages`` [n_pages, P, KVH, D] — one
@@ -22,20 +26,17 @@ Returns the unnormalized ``Partial(o [B,1,H,D], m, l [B,1,H])`` in f32;
 """
 from __future__ import annotations
 
-import math
 from collections import Counter
 from typing import Optional
 
 import torch
 
+from repro_torch.kernels import decode_split
 from repro_torch.models.attention import Partial, empty_partial, partial_attention
 
 #: kernel launches on CUDA tensors (comparisons with the plain version and
 #: CPU calls are not launches of the kernel)
 launch_counts: Counter = Counter()
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
 
 def paged_flash_decode_partial_plain(
     q, k_pages, v_pages, block_table, lengths, page_pos=None, *,
@@ -65,8 +66,6 @@ def paged_flash_decode_partial_plain(
 
 def _launch(q, k_pages, v_pages, block_table, lengths, page_pos, *,
             query_pos, window, softcap) -> Partial:
-    from repro_torch.kernels import _build
-
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode kernel: tensors on {q.device}")
     b, sq, h, d = q.shape
@@ -74,11 +73,14 @@ def _launch(q, k_pages, v_pages, block_table, lengths, page_pos, *,
         raise ValueError("paged_decode kernel: one query token per request")
     n_pages, page_size, kvh = k_pages.shape[0], k_pages.shape[1], k_pages.shape[2]
     if (k_pages.shape[3] != d or v_pages.shape != k_pages.shape or h % kvh
-            or h // kvh > 64 or d > 256):
+            or h // kvh > 64 or d % 8 or not 8 <= d <= 256):
         raise ValueError(f"paged_decode kernel: shapes q {tuple(q.shape)}, "
-                         f"pages {tuple(k_pages.shape)}/{tuple(v_pages.shape)}")
-    if q.dtype not in _DTYPE_CODE or k_pages.dtype not in _DTYPE_CODE \
-            or v_pages.dtype != k_pages.dtype:
+                         f"pages {tuple(k_pages.shape)}/{tuple(v_pages.shape)} "
+                         "(need h % kvh == 0, h / kvh <= 64, d % 8 == 0, "
+                         "8 <= d <= 256)")
+    codes = decode_split.DTYPE_CODE
+    if (q.dtype not in codes or k_pages.dtype not in codes
+            or v_pages.dtype != k_pages.dtype):
         raise TypeError(f"paged_decode kernel: dtypes {q.dtype}, "
                         f"{k_pages.dtype}, {v_pages.dtype}")
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
@@ -100,22 +102,12 @@ def _launch(q, k_pages, v_pages, block_table, lengths, page_pos, *,
         qpos = torch.as_tensor(query_pos).to(dev, torch.int32).contiguous()
         if pos.numel() != n_pages * page_size or qpos.shape != (b,):
             raise ValueError("paged_decode kernel: page_pos/query_pos shapes")
-    q = q.contiguous()
-    o = torch.empty((b, 1, h, d), dtype=torch.float32, device=dev)
-    m = torch.empty((b, 1, h), dtype=torch.float32, device=dev)
-    l = torch.empty((b, 1, h), dtype=torch.float32, device=dev)
-    lib = _build.load_library("paged_decode")
-    P = _build.ptr
-    err = lib.repro_paged_decode(
-        P(q), P(k_pages), P(v_pages), P(bt), P(lens), P(pos), P(qpos),
-        P(o), P(m), P(l), b, h, kvh, d, page_size, max_pages,
-        _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype],
-        int(window) if window is not None else 0,
-        float(softcap) if softcap is not None else 0.0, 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(dev).cuda_stream,
+    return decode_split.launch(
+        "paged_decode", (q.contiguous(), k_pages, v_pages, bt, lens, pos, qpos),
+        (b, h, kvh, d, page_size, max_pages), q=q, kvh=kvh,
+        kv_dtype=k_pages.dtype, n_keys_bound=max_pages * page_size,
+        window=window, softcap=softcap,
     )
-    _build.check(lib, "paged_decode", err)
-    return Partial(o=o, m=m, l=l)
 
 
 def paged_flash_decode_partial(

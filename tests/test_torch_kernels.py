@@ -28,7 +28,9 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.core import esp as tesp  # noqa: E402
 from repro_torch.core import striped as tstriped  # noqa: E402
+from hypothesis_compat import given, settings, strategies as st  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import decode_split as tds  # noqa: E402
 from repro_torch.kernels import flash_decode as tfd  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import paged_flash_decode as tpfd  # noqa: E402
@@ -400,10 +402,12 @@ def test_build_key_covers_included_headers(tmp_path):
     src.write_text('#include <cuda_runtime.h>\n#include "a.cuh"\nint k2;\n')
     assert _build.source_key(src) != key2
     # the shipped attention kernels share csrc/common.cuh; K4 and K1 / K3
-    # also share the tensor-core core csrc/attn_tc.cuh, which includes it
+    # also share the tensor-core core csrc/attn_tc.cuh, K2 and K5 the
+    # split-K decode core csrc/decode_splitk.cuh, both of which include it
     for name, headers in (("striped_attention", ["attn_tc.cuh", "common.cuh"]),
                           ("flash_prefill", ["attn_tc.cuh", "common.cuh"]),
-                          ("flash_decode", ["common.cuh"])):
+                          ("flash_decode", ["common.cuh", "decode_splitk.cuh"]),
+                          ("paged_decode", ["common.cuh", "decode_splitk.cuh"])):
         files = [p.name for p in _build.source_files(_build.CSRC / f"{name}.cu")]
         assert files == headers + [f"{name}.cu"]
 
@@ -502,3 +506,231 @@ def test_tc_tolerance_catches_a_wrong_kernel(d, fault):
         i = torch.arange(q.shape[0])
         got = _tc_emulation(q, k, v, i[:, None] + 1 >= i[None, :])
     assert not _tc_within_bound(got, want, v)
+
+
+# ------------------------------------------- the split-K decode core (K2, K5)
+#
+# csrc/decode_splitk.cuh cuts each row's valid keys [lo, hi) into the
+# planner's splits [lo + i * chunk, min(hi, lo + (i + 1) * chunk)), computes
+# one partial per split and merges them by log-sum-exp.  No kernel runs on
+# the CPU, so these cases hold the design's arithmetic: the plan covers every
+# valid key exactly once, and a plain emulation of the split path (per-split
+# partials at the planner's boundaries, then the merge as the CUDA merge
+# computes it) matches the JAX reference.
+
+
+def _k5_range(length, s, offset, window):
+    """A K5 row's valid keys [lo, hi) in shard coordinates, as DenseRows::
+    range in csrc/flash_decode.cu computes them."""
+    hi = max(0, min(s, length - offset))
+    lo = min(hi, max(0, length - window + 1 - offset)) if window else 0
+    return lo, hi
+
+
+def _split_ranges(lo, hi, n_splits, chunk):
+    """The keys each split of one row walks (empty past hi)."""
+    return [range(lo + i * chunk, min(hi, lo + (i + 1) * chunk))
+            for i in range(n_splits)]
+
+
+def _near_chunk(data, chunk, long_max):
+    """A key count at a split edge (0, 1, chunk - 1, chunk, chunk + 1) or
+    anywhere up to ``long_max``."""
+    return data.draw(st.one_of(st.sampled_from([0, 1, chunk - 1, chunk,
+                                                chunk + 1]),
+                               st.integers(0, long_max)))
+
+
+@settings(max_examples=150, deadline=None)
+@given(data=st.data(), b=st.integers(1, 5), kvh=st.sampled_from([1, 2, 8, 32]),
+       qpk=st.sampled_from([1, 2, 3, 4, 16]), s=st.integers(1, 5000),
+       offset=st.integers(0, 3000),
+       window=st.one_of(st.none(), st.integers(1, 6000)),
+       n_sm=st.sampled_from([4, 132]))
+def test_split_plan_covers_every_dense_key_once(data, b, kvh, qpk, s, offset,
+                                                window, n_sm):
+    """K5: for any shard length, offset, window and lengths at the split
+    edges or past the shard (S < length), the splits of each row walk every
+    valid key of the reference's mask exactly once."""
+    bound = s if window is None else min(s, window - 1)
+    n_splits, chunk = tds.plan(b, kvh, bound, q_per_kv=qpk, n_sm=n_sm)
+    assert chunk % tds.TILE == 0 and chunk > 0 and n_splits * chunk >= bound
+    for _ in range(b):
+        length = offset + _near_chunk(data, chunk, s + 3000)
+        pos = offset + np.arange(s)
+        valid = pos < length
+        if window is not None:
+            valid &= pos > length - window
+        lo, hi = _k5_range(length, s, offset, window)
+        walked = [j for r in _split_ranges(lo, hi, n_splits, chunk) for j in r]
+        assert walked == np.flatnonzero(valid).tolist()
+
+
+@settings(max_examples=150, deadline=None)
+@given(data=st.data(), b=st.integers(1, 5), kvh=st.sampled_from([1, 2, 8, 32]),
+       qpk=st.sampled_from([1, 2, 4, 16]), page=st.sampled_from([1, 16]),
+       max_pages=st.integers(1, 400), n_sm=st.sampled_from([4, 132]))
+def test_split_plan_covers_every_paged_key_once(data, b, kvh, qpk, page,
+                                                max_pages, n_sm):
+    """K2: the splits of each request walk its local tokens [0, lengths[b])
+    (clipped to the table's width, as the plain gather is) exactly once; the
+    window stays a per-slot test inside the walk."""
+    bound = max_pages * page
+    n_splits, chunk = tds.plan(b, kvh, bound, q_per_kv=qpk, n_sm=n_sm)
+    assert chunk % tds.TILE == 0 and n_splits * chunk >= bound
+    for _ in range(b):
+        length = _near_chunk(data, chunk, bound + 10)
+        hi = min(length, bound)
+        walked = [j for r in _split_ranges(0, hi, n_splits, chunk) for j in r]
+        assert walked == list(range(hi))
+
+
+def test_split_plan_fills_the_card():
+    """A single row is cut so that its CTAs number about two per SM; a batch
+    (rows of unequal lengths) about 16 times that; a batch that brings as
+    many CTAs with one split per row keeps one split (pass 1 writes the
+    partial itself); the same shapes give the same plan."""
+    # the unified step's thousands of short rows, and of long ones
+    assert tds.plan(2048, 8, 64, q_per_kv=4) == (1, 64)
+    assert tds.plan(2048, 8, 4096, q_per_kv=4) == (1, 4096)
+    # K5, B = 1: mixtral's 4095 window keys x 8 KV heads x 2 row blocks in 16
+    # splits of four tiles (256 CTAs), zamba2's 8192 x 32 in 8 of 16 tiles
+    assert tds.plan(1, 8, 4095, q_per_kv=4) == (16, 256)
+    assert tds.plan(1, 32, 8192) == (8, 1024)
+    # K2's timed batch: 16 requests x 32 KV heads, up to 4032 keys: 8 splits
+    # of 512 keys (4096 CTAs)
+    assert tds.plan(16, 32, 4032) == (8, 512)
+    for b, kvh, bound, qpk in [(1, 8, 65536, 4), (3, 2, 700, 1), (4, 8, 4096, 16),
+                               (1, 1, 10, 1), (7, 32, 300, 1), (16, 32, 4032, 1)]:
+        n, chunk = tds.plan(b, kvh, bound, q_per_kv=qpk)
+        ctas = b * kvh * -(-qpk // tds.rows_per_cta(qpk))
+        tiles = -(-bound // tds.TILE)
+        target = tds.CTAS_PER_SM * tds.H100_SMS * (tds.RAGGED if b > 1 else 1)
+        if n > 1:  # about the target (or one tile per split, short of it)
+            assert min(target / 2, ctas * tiles) <= n * ctas <= 2 * target + ctas
+        assert (n - 1) * chunk < bound <= n * chunk
+        assert tds.plan(b, kvh, bound, q_per_kv=qpk) == (n, chunk)
+    assert [tds.rows_per_cta(g) for g in (1, 2, 3, 4, 16)] == [1, 2, 2, 2, 2]
+
+
+def _merge_splits(parts, warps=8):
+    """The merge pass of csrc/decode_splitk.cuh in plain torch, as it
+    computes it: warp w folds splits w, w + warps, ... by an online
+    log-sum-exp (empty splits skipped), then the warps' states are folded:
+    m = max_w m_w, a_w = exp(m_w - max(m, -1e29)), l = sum a_w l_w,
+    o = sum a_w o_w; all splits empty gives m = -inf, l = 0, o = 0."""
+    states = []
+    for w in range(warps):
+        mw = torch.full_like(parts[0].m, -math.inf)
+        lw = torch.zeros_like(parts[0].l)
+        ow = torch.zeros_like(parts[0].o)
+        for p in parts[w::warps]:
+            live = torch.isfinite(p.m)
+            mn = torch.where(live, torch.maximum(mw, p.m), mw)
+            a = torch.where(live, torch.exp(mw - mn), torch.ones(()))
+            wt = torch.where(live, torch.exp(p.m - mn), torch.zeros(()))
+            lw = lw * a + wt * p.l
+            ow = ow * a[..., None] + wt[..., None] * p.o
+            mw = mn
+        states.append((mw, lw, ow))
+    mx = torch.stack([s[0] for s in states]).amax(dim=0)
+    ms = mx.clamp_min(-1e29)
+    wts = [torch.exp(s[0] - ms) for s in states]
+    return tA.Partial(o=sum(a[..., None] * s[2] for a, s in zip(wts, states)),
+                      m=torch.where(torch.isinf(mx), mx, ms),
+                      l=sum(a * s[1] for a, s in zip(wts, states)))
+
+
+def _close_split(got, want):
+    """The module's tolerances for partials: o / l and m within 2e-5, l
+    relative 1e-4, the same empty rows."""
+    wo, wm, wl = (np.asarray(x) for x in want)
+    _close(got.m, wm)
+    np.testing.assert_allclose(got.l.numpy(), wl, rtol=1e-4, atol=0)
+    den = np.where(wl == 0, 1.0, wl)[..., None]
+    _close(got.o / torch.where(got.l == 0, torch.ones(()), got.l)[..., None],
+           wo / den)
+
+
+@pytest.mark.parametrize("impl", ["xla", "interpret"])
+@pytest.mark.parametrize("kvh,window,softcap", [(2, None, None), (2, 100, None),
+                                                (4, 150, 5.0), (1, None, 5.0)])
+def test_split_emulation_matches_reference_dense(impl, kvh, window, softcap):
+    """K5's split path at the planner's boundaries (320 keys, offset 24):
+    rows empty, ending at chunk - 1 / chunk / chunk + 1 keys, past the
+    shard; windows that leave whole splits empty."""
+    b, s, off = 5, 320, 24
+    rng = np.random.default_rng(21)
+    q = rng.normal(size=(b, 1, H, D)).astype(np.float32)
+    _, k, v = _bqkv(22, b, 1, s, H, kvh, D)
+    bound = s if window is None else min(s, window - 1)
+    n_splits, chunk = tds.plan(b, kvh, bound, q_per_kv=H // kvh)
+    assert n_splits > 1
+    lengths = np.array([0, off + chunk - 1, off + chunk, off + chunk + 1,
+                        off + s + 10], np.int32)
+    tq, tk, tv = _t(q, k, v)
+    parts = []
+    for i in range(n_splits):
+        mask = torch.zeros(b, 1, s, dtype=torch.bool)
+        for r in range(b):
+            keys = _split_ranges(*_k5_range(int(lengths[r]), s, off, window),
+                                 n_splits, chunk)[i]
+            mask[r, 0, keys.start:keys.stop] = len(keys) > 0
+        parts.append(tA.partial_attention(tq, tk, tv, mask, softcap=softcap))
+    got = _merge_splits(parts)
+    want = jops.decode_partial(*map(jnp.asarray, (q, k, v, lengths)), impl=impl,
+                               block_k=64, k_pos_offset=off, window=window,
+                               softcap=softcap)
+    _close_split(got, want)
+    assert torch.isinf(got.m[0]).all() and (got.l[0] == 0).all()
+    assert (got.o[0] == 0).all()
+
+
+@pytest.mark.parametrize("impl,page", [("xla", 1), ("xla", 16), ("interpret", 16)])
+@pytest.mark.parametrize("kvh,window,softcap", [(2, None, None), (2, 40, None),
+                                                (4, 100, 5.0)])
+def test_split_emulation_matches_reference_paged(impl, page, kvh, window,
+                                                 softcap):
+    """K2's split path at the planner's boundaries over scattered pages:
+    rows empty, ending at chunk - 1 / chunk / chunk + 1 tokens, full; the
+    per-slot window leaves the first splits of long rows all masked."""
+    b, s = 5, 320  # the table's width in tokens; the pool holds 640 slots
+    n_pages, max_pages = 640 // page, s // page
+    rng = np.random.default_rng(23)
+    q = rng.normal(size=(b, 1, H, D)).astype(np.float32)
+    kp = rng.normal(size=(n_pages, page, kvh, D)).astype(np.float32)
+    vp = rng.normal(size=(n_pages, page, kvh, D)).astype(np.float32)
+    n_splits, chunk = tds.plan(b, kvh, s, q_per_kv=H // kvh)
+    assert n_splits > 1
+    lengths = np.array([0, chunk - 1, chunk, chunk + 1, s], np.int32)
+    table = np.zeros((b, max_pages), np.int32)
+    pos = np.full((n_pages, page), -1, np.int32)
+    free = list(rng.permutation(n_pages))
+    for i in range(b):
+        pages = [free.pop() for _ in range(-(-int(lengths[i]) // page))]
+        table[i, :len(pages)] = pages
+        for j, pg in enumerate(pages):
+            pos[pg] = np.arange(j * page, (j + 1) * page)
+    qpos = lengths.copy()
+    tq, tkp, tvp = _t(q, kp, vp)
+    flat = torch.from_numpy(table.reshape(-1)).long()
+    k = tkp[flat].reshape(b, s, kvh, D)
+    v = tvp[flat].reshape(b, s, kvh, D)
+    kpos = torch.from_numpy(pos)[flat].reshape(b, s)
+    parts = []
+    for i in range(n_splits):
+        mask = torch.zeros(b, 1, s, dtype=torch.bool)
+        for r in range(b):
+            keys = _split_ranges(0, min(int(lengths[r]), s), n_splits, chunk)[i]
+            mask[r, 0, keys.start:keys.stop] = len(keys) > 0
+        if window is not None:
+            mask &= (torch.from_numpy(qpos)[:, None, None] - kpos[:, None]) < window
+        parts.append(tA.partial_attention(tq, k, v, mask, softcap=softcap))
+    got = _merge_splits(parts)
+    want = jops.paged_decode_partial(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), table, lengths, pos,
+        query_pos=qpos, window=window, softcap=softcap, impl=impl,
+    )
+    _close_split(got, want)
+    assert torch.isinf(got.m[0]).all() and (got.l[0] == 0).all()
+    assert (got.o[0] == 0).all()

@@ -13,7 +13,9 @@ which costs at most 2^-9 of it, so the normalized output may move by
 2^-9 max|v|; the bound is 1e-4 + 2^-8 max|v| (the factor 2 covers the
 rescale by alpha), and the mean error must stay below 1e-3.  K4 writes bf16
 outputs, so they may also sit one bf16 step apart (2^-7 |plain|).  m keeps
-1e-4 absolute, l 1e-4 relative, and empty rows must match.
+1e-4 absolute, l 1e-4 relative, and empty rows must match.  The split-K
+decode cases (long rows, many rows) hold o / l and m to 1e-4: f32 sums over
+up to 64k keys in another order, merged across splits.
 """
 import numpy as np
 import pytest
@@ -21,6 +23,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import striped as tstriped  # noqa: E402
+from repro_torch.kernels import decode_split as tds  # noqa: E402
 from repro_torch.kernels import flash_decode as tfd  # noqa: E402
 from repro_torch.kernels import paged_flash_decode as tpfd  # noqa: E402
 from repro_torch.kernels import paged_flash_prefill as tpfp  # noqa: E402
@@ -283,3 +286,145 @@ def test_striped_attention_long_keys_on_card(cuda_device, window):
     _close_tc(tsa.striped_flash_attention(q, k, v, qp, kp, **kw),
               tsa.striped_flash_attention_plain(q, k, v, qp, kp, **kw), v,
               bf16_out=True)
+
+
+# ------------------------------------------- the split-K decode core (K2, K5)
+
+
+def _close_partial(got, want, atol=1e-4):
+    """(o, m, l) of the split-K decode core against the plain partial: o / l
+    and m within ``atol`` (f32 sums over up to 64k keys in another order and
+    merged across splits), l relative 1e-4, the same empty rows."""
+    (o, m, l), (wo, wm, wl) = (tuple(x.float().cpu() for x in p) for p in (got, want))
+    fin = torch.isfinite(wm)
+    assert torch.equal(torch.isfinite(m), fin)
+    if fin.any():
+        assert (m[fin] - wm[fin]).abs().max().item() <= atol
+    assert ((l - wl).abs() <= 1e-4 * wl.abs()).all(), (l - wl).abs().max().item()
+
+    def fin_o(o_, l_):
+        return o_ / torch.where(l_ == 0, torch.ones_like(l_), l_)[..., None]
+
+    diff = (fin_o(o, l) - fin_o(wo, wl)).abs().max().item()
+    assert diff <= atol, diff
+    empty = ~fin
+    assert (l[empty] == 0).all() and (o[empty] == 0).all()
+
+
+def _paged_pool(rng, lengths, page, kvh, d, dt, dev, width=None, spare=8):
+    """A pool with every request on scattered pages, its block table (at
+    least ``width`` pages wide) and the pages' global positions."""
+    npg = [-(-int(x) // page) for x in lengths]
+    n_pages = sum(npg) + spare
+    kp = torch.from_numpy(rng.normal(size=(n_pages, page, kvh, d)).astype(np.float32))
+    vp = torch.from_numpy(rng.normal(size=(n_pages, page, kvh, d)).astype(np.float32))
+    table = np.zeros((len(lengths), max(max(npg), width or 1)), np.int32)
+    pos = np.full((n_pages, page), -1, np.int32)
+    free = list(rng.permutation(n_pages))
+    for i, n in enumerate(npg):
+        pages = [free.pop() for _ in range(n)]
+        table[i, :n] = pages
+        for j, pg in enumerate(pages):
+            pos[pg] = np.arange(j * page, (j + 1) * page)
+    as_dev = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    return (kp.to(dev, dt), vp.to(dev, dt), as_dev(table),
+            as_dev(np.asarray(lengths, np.int32)), as_dev(pos))
+
+
+DTYPE_PAIRS = [("float32", "float32"), ("bfloat16", "float32"),
+               ("float32", "bfloat16"), ("bfloat16", "bfloat16")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdt,kvdt", DTYPE_PAIRS)
+@pytest.mark.parametrize("d", [16, 80, 96, 128, 256])
+def test_split_decode_edges_on_card(cuda_device, qdt, kvdt, d):
+    """K2 (page sizes 1 and 16, with and without a window over page_pos) and
+    K5 (k_pos_offset > 0, with and without a window, a softcap) where rows
+    end at chunk - 1, chunk and chunk + 1 keys of the wrapper's plan, an
+    empty row and a full one; two plans: 64-key splits (B 5, KVH 2) and
+    512-key splits (B 4, KVH 8, 4096 keys)."""
+    q_dt, kv_dt = getattr(torch, qdt), getattr(torch, kvdt)
+    rng = np.random.default_rng(d)
+    n_sm = tds.sm_count(cuda_device)
+
+    def rand(*shape, dt):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+            cuda_device, dt)
+
+    for b, kvh, qpk, s in [(5, 2, 2, 1024), (4, 8, 1, 4096)]:
+        h = kvh * qpk
+        n_splits, chunk = tds.plan(b, kvh, s, q_per_kv=qpk, n_sm=n_sm)
+        assert n_splits > 1
+        edges = [chunk - 1, chunk, chunk + 1, 0, s][:b]
+        q = rand(b, 1, h, d, dt=q_dt)
+        # K2: the request lengths at the edges, the table s tokens wide
+        for page in (1, 16):
+            kp, vp, bt, ln, pos = _paged_pool(rng, edges, page, kvh, d, kv_dt,
+                                              cuda_device, width=s // page)
+            assert bt.shape[1] * page == s
+            for window, softcap in [(None, None), (300, 20.0)]:
+                kw = dict(query_pos=ln, window=window, softcap=softcap)
+                _close_partial(
+                    tpfd.paged_flash_decode_partial(q, kp, vp, bt, ln, pos, **kw),
+                    tpfd.paged_flash_decode_partial_plain(q, kp, vp, bt, ln, pos, **kw))
+        # K5: the valid keys at the edges behind an offset
+        off = 24
+        k, v = rand(b, s, kvh, d, dt=kv_dt), rand(b, s, kvh, d, dt=kv_dt)
+        ln = torch.tensor([off + x for x in edges], dtype=torch.int32,
+                          device=cuda_device)
+        for window, softcap in [(None, None), (chunk + 1, 20.0)]:
+            kw = dict(k_pos_offset=off, window=window, softcap=softcap)
+            got = tfd.flash_decode_partial(q, k, v, ln, **kw)
+            _close_partial(got, tfd.flash_decode_partial_plain(q, k, v, ln, **kw))
+            assert torch.isinf(got.m[3]).all() and (got.l[3] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 5000])
+def test_split_decode_long_row_on_card(cuda_device, window):
+    """B = 1 over 64k keys at KVH 8 (mixtral's GQA 4, D 128, bf16): K5 over a
+    dense shard and K2 over 16-token pages; with a window only its keys
+    count."""
+    rng = np.random.default_rng(31)
+    s, kvh, h, d = 65536, 8, 32, 128
+    bf16 = torch.bfloat16
+
+    def rand(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+            cuda_device, bf16)
+
+    q, k, v = rand(1, 1, h, d), rand(1, s, kvh, d), rand(1, s, kvh, d)
+    ln = torch.tensor([s], dtype=torch.int32, device=cuda_device)
+    kw = dict(window=window)
+    _close_partial(tfd.flash_decode_partial(q, k, v, ln, **kw),
+                   tfd.flash_decode_partial_plain(q, k, v, ln, **kw))
+    kp, vp, bt, ln, pos = _paged_pool(rng, [s], 16, kvh, d, bf16, cuda_device)
+    kw = dict(query_pos=ln, window=window)
+    _close_partial(tpfd.paged_flash_decode_partial(q, kp, vp, bt, ln, pos, **kw),
+                   tpfd.paged_flash_decode_partial_plain(q, kp, vp, bt, ln, pos, **kw))
+
+
+@pytest.mark.gpu
+def test_split_decode_many_rows_on_card(cuda_device):
+    """2048 rows of short contexts (the unified step's prefix plane): one
+    split per row, pass 1 writing (o, m, l) itself; K2 on the f32 pool with
+    bf16 q at page size 1, and K5."""
+    rng = np.random.default_rng(32)
+    b, kvh, h, d = 2048, 8, 32, 128
+    lengths = rng.integers(0, 97, b)
+    assert tds.plan(b, kvh, 96, q_per_kv=h // kvh,
+                    n_sm=tds.sm_count(cuda_device))[0] == 1
+    q = torch.from_numpy(rng.normal(size=(b, 1, h, d)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    kp, vp, bt, ln, pos = _paged_pool(rng, lengths, 1, kvh, d, torch.float32,
+                                      cuda_device)
+    _close_partial(tpfd.paged_flash_decode_partial(q, kp, vp, bt, ln, pos),
+                   tpfd.paged_flash_decode_partial_plain(q, kp, vp, bt, ln, pos))
+    k = torch.from_numpy(rng.normal(size=(b, 96, kvh, d)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    v = torch.from_numpy(rng.normal(size=(b, 96, kvh, d)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    ln = torch.as_tensor(lengths, dtype=torch.int32, device=cuda_device)
+    _close_partial(tfd.flash_decode_partial(q, k, v, ln),
+                   tfd.flash_decode_partial_plain(q, k, v, ln))
