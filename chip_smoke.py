@@ -49,7 +49,31 @@ Phases (each one fails the run with a non-zero exit; none is caught):
   8. token parity of both serial families at full width and reduced depth
      in f32 (mixtral 2 layers with a 4200-token prompt so the window bites;
      zamba2 one superblock): the engine's tokens equal the port's plain
-     serial oracle exactly.
+     serial oracle exactly;
+  9. unified serving: full-width, full-depth lwm-7b in bf16 with
+     ``ManagerConfig(prefill_chunk_tokens=512)``, 4 instances x 4096 slots,
+     four prompts of 512-1024 tokens (24 new tokens each) and a 4096-token
+     prompt arriving at t = 0.05 s (8 new tokens): every prefill runs as a
+     chain of unified steps (K2 as the per-token prefix plane, K3 as the
+     chunk plane; K1 never launches), at least 3 links carry decode rows
+     while the long prompt is mid-prefill, and every large prefix-plane
+     launch plans one split (no split-K workspace); spans for the host
+     tables, the model step, the emit and the decode outside the chain;
+  10. unified parity at full width, 2 layers, f32: chunk-resume for chunk
+     budgets 4096 / 37 / 1, a mid-chain instance failure at DoP 2 and 4
+     that salvages the survivors' KV (tests/test_salvage.py's topologies
+     x10), and a checkpoint taken mid-chain restored into a fresh engine
+     that resumes at its cursor; tokens equal the serial oracle;
+  11. the real-mode chaos soak of tests/test_chaos.py at full width, 2
+     layers, f32 (all six injectors), on the packed / paged path and on
+     the unified path: every injector fires, zero invariant violations and
+     leaks, tokens equal the serial oracle.
+
+Phases 2-3 also hold K2 and K3 at the unified step's shapes (K2: B = 512
+per-token rows over tables 4096 wide, a third of them empty; K3: n_shards
+= 1, four chunks, 32 one-row segments and padding, carried from K2's
+output) and add their times and both K2 bounds (distinct bytes, bytes as
+launched) to the K2 / K3 rows as ``unified_*`` fields.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -73,6 +97,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s (data sheet)
+PEAK_F32 = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores (data sheet)
 HBM_BPS = 3.35e12  # H100 SXM HBM3 bytes/s (data sheet)
 TOL_OUT = 1e-4  # normalized outputs: f32 accumulation, other order, <=8k keys
 BF16_ROUND = 2.0 ** -7  # a bf16 output may round to the neighbouring value
@@ -506,6 +531,138 @@ def phase_kernels(rec, card):
     torch.cuda.empty_cache()
 
 
+# the unified step's operands at lwm-7b width: (prefix, rows) of each
+# prefill chunk, then UNI_DECODES one-row decode segments, padded to UNI_T
+UNI_CHUNKS = [(3584, 64), (2048, 112), (1024, 128), (0, 160)]
+UNI_DECODES = 32
+UNI_T = 512
+UNI_TABLE = 4096  # table width: the engine buckets max pages to a power of 2
+
+
+def _plain_rows(fn, q, kp, vp, bt, ln, rows=32):
+    """K2's plain version over blocks of ``rows`` rows (the same math per
+    row; one gather of 512 rows x 4096 keys would need ~60 GB)."""
+    import torch
+
+    from repro_torch.models.attention import Partial
+
+    parts = [fn(q[i:i + rows], kp, vp, bt[i:i + rows], ln[i:i + rows])
+             for i in range(0, q.shape[0], rows)]
+    return Partial(*(torch.cat(x) for x in zip(*parts)))
+
+
+def phase_unified_kernels(rec, card):
+    """K2 and K3 at the unified step's shapes (phases 2 and 3): K2 as the
+    prefix plane (one row per packed token, each carrying its request's
+    whole table row), K3 as the chunk plane (n_shards = 1) folding the chunk
+    into K2's partial as its carry.  Added to the K2 / K3 rows as
+    ``unified_*`` fields."""
+    import torch
+
+    from repro_torch.kernels import decode_split
+    from repro_torch.kernels import paged_flash_decode as pfd
+    from repro_torch.kernels import paged_flash_prefill as pfp
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rng = np.random.default_rng(2)
+    H, KVH, D = 32, 32, 128
+    log = ["[check] K2 / K3 at the unified step's shapes vs plain versions (TF32 off)"]
+    prefixes = [p for p, _ in UNI_CHUNKS] + [
+        int(x) for x in rng.integers(512, 3585, UNI_DECODES)]
+    seg_lens = [n for _, n in UNI_CHUNKS] + [1] * UNI_DECODES
+    n_tok = sum(seg_lens)
+    pad = UNI_T - n_tok
+    assert pad > 0
+    # the pool: every request's keys on scattered slots (page size 1)
+    n_slots = sum(prefixes) + 8
+    kp = torch.randn((n_slots, 1, KVH, D), generator=gen, device=dev)
+    vp = torch.randn((n_slots, 1, KVH, D), generator=gen, device=dev)
+    perm = rng.permutation(n_slots).astype(np.int32)
+    table = np.zeros((UNI_T, UNI_TABLE), np.int32)
+    lengths = np.zeros(UNI_T, np.int32)
+    c = c0 = 0
+    for p, n in zip(prefixes, seg_lens):
+        table[c:c + n, :p] = perm[c0:c0 + p]
+        lengths[c:c + n] = p
+        c0 += p
+        c += n
+    bt = torch.as_tensor(table, device=dev)
+    ln = torch.as_tensor(lengths, device=dev)
+    q = torch.randn((UNI_T, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    qd = q[:, None]
+    empty = float((lengths == 0).mean())
+    n_splits, chunk = decode_split.plan(UNI_T, KVH, UNI_TABLE, q_per_kv=H // KVH,
+                                        n_sm=decode_split.sm_count(dev))
+    assert n_splits == 1, (n_splits, chunk)  # no workspace at this size
+    part = pfd.paged_flash_decode_partial(qd, kp, vp, bt, ln)
+    want = _plain_rows(pfd.paged_flash_decode_partial_plain, qd, kp, vp, bt, ln)
+    err2 = _check(f"K2 unified prefix plane B={UNI_T} ({empty:.0%} rows empty)",
+                  part, want, log)
+    del want
+    key_rows = int(lengths.sum())
+    distinct = sum(prefixes)
+    kv_b = KVH * D * 4 * 2  # f32 K + V per key
+    other = (UNI_T * H * D * 2 + UNI_T * H * (D + 2) * 4 + UNI_T * 4)
+    launched_bytes = key_rows * kv_b + other + key_rows * 4
+    distinct_bytes = distinct * kv_b + other + distinct * 4
+    flops = 4 * H * D * key_rows  # f32 FMAs over the f32 pool
+    ms, how = _device_ms(lambda i: pfd.paged_flash_decode_partial(qd, kp, vp, bt, ln))
+    plain_ms = _time_ms(lambda: _plain_rows(pfd.paged_flash_decode_partial_plain,
+                                            qd, kp, vp, bt, ln), 1, 0)
+    bound = max(distinct_bytes / HBM_BPS, flops / PEAK_F32) * 1e3
+    bound_launched = max(launched_bytes / HBM_BPS, flops / PEAK_F32) * 1e3
+    rec["K2"].update(unified_shape=(
+        f"B {UNI_T} per-token rows, table {UNI_TABLE} wide, prefixes "
+        f"{[p for p, _ in UNI_CHUNKS]} + {UNI_DECODES} decode rows, {empty:.0%} "
+        "empty, f32 pool, bf16 q, page 1"),
+        unified_ms=ms, unified_plain_ms=plain_ms, unified_max_abs_err=err2,
+        unified_bound_ms=bound, unified_launched_bound_ms=bound_launched)
+    print(f"[time {card}] K2 unified prefix plane (B={UNI_T}, {key_rows} key-rows "
+          f"as launched, {distinct} distinct keys): kernel {ms:.4f} ms ({how}), "
+          f"{launched_bytes / ms / 1e9:.2f} TB/s as launched, plain {plain_ms:.1f} ms, "
+          f"bound {bound:.4f} ms (distinct bytes {distinct_bytes / 1e9:.2f} GB), "
+          f"as-launched bound {bound_launched:.4f} ms ({launched_bytes / 1e9:.2f} GB); "
+          f"plan {n_splits} split of {chunk} keys, {UNI_T * KVH} CTAs, no workspace")
+    # ---- K3: the chunk plane folded into K2's partial (rows of chunk 3 and
+    # the padding carry nothing: m = -inf, l = 0)
+    off = np.full(len(seg_lens) + 1 + 7, n_tok, np.int32)  # trailing empty segs
+    off[0] = 0
+    off[1:len(seg_lens) + 1] = np.cumsum(seg_lens)
+    offd = torch.as_tensor(off, device=dev)
+    k = torch.randn((UNI_T, KVH, D), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((UNI_T, KVH, D), generator=gen, device=dev).to(torch.bfloat16)
+    carry = (part.o[:, 0].contiguous(), part.m[:, 0].contiguous(),
+             part.l[:, 0].contiguous())
+    assert torch.isinf(carry[1]).any() and torch.isfinite(carry[1]).any()
+    kw = dict(q_shard=0, k_shard=0, n_shards=1)
+    got = pfp.packed_flash_prefill_ring_chunk(q, k, v, offd, offd, carry, **kw)
+    want = pfp.packed_flash_prefill_ring_chunk_plain(q, k, v, offd, offd, carry, **kw)
+    err3 = _check(f"K3 unified chunk plane T={UNI_T} (carry from K2)", got, want,
+                  log, v=v)
+    del got, want
+    segs = _segments(off, UNI_T)
+    flops3 = 4 * H * D * sum(s_ * (s_ + 1) // 2 for s_ in segs)
+    bytes3 = UNI_T * (H + 2 * KVH) * D * 2 + 2 * UNI_T * H * (D + 2) * 4
+    ms3, how3 = _device_ms(lambda i: pfp.packed_flash_prefill_ring_chunk(
+        q, k, v, offd, offd, carry, **kw))
+    plain3 = _time_ms(lambda: pfp.packed_flash_prefill_ring_chunk_plain(
+        q, k, v, offd, offd, carry, **kw), 3, 1)
+    bound3 = max(flops3 / PEAK_BF16, bytes3 / HBM_BPS) * 1e3
+    rec["K3"].update(unified_shape=(
+        f"T {UNI_T}, n_shards 1, chunks {[n for _, n in UNI_CHUNKS]} + "
+        f"{UNI_DECODES} one-row segments + {pad} padding, carry from K2, bf16"),
+        unified_ms=ms3, unified_plain_ms=plain3, unified_max_abs_err=err3,
+        unified_bound_ms=bound3)
+    print(f"[time {card}] K3 unified chunk plane (T={UNI_T}, {len(segs)} segments): "
+          f"kernel {ms3:.4f} ms ({how3}), {_rates(flops3, ms3, bound3)}, plain "
+          f"{plain3:.3f} ms, bound {bound3:.5f} ms ({bytes3 / 1e6:.1f} MB, "
+          f"{flops3 / 1e9:.2f} GFLOP)")
+    print("\n".join(log))
+    del kp, vp, part, carry
+    torch.cuda.empty_cache()
+
+
 def _attended_pairs(qp, kp, causal, window):
     """(q, k) pairs the position mask admits: the work K4's bound counts."""
     total = 0
@@ -749,6 +906,39 @@ def phase_attention_kernels(rec, card):
     torch.cuda.empty_cache()
 
 
+def _expect_launches(counts, launched, not_launched):
+    """Kernels that must have been launched in a run, and kernels that must
+    not have been."""
+    for name in launched:
+        assert counts.get(name, 0) > 0, (name, counts)
+    for name in not_launched:
+        assert counts.get(name, 0) == 0, (name, counts)
+
+
+def _kernel_counts():
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import paged_flash_decode as pfd
+    from repro_torch.kernels import paged_flash_prefill as pfp
+    from repro_torch.kernels import striped_attention as sa
+
+    counts = {}
+    for mod in (pfp, pfd, sa, fd):
+        counts.update(mod.launch_counts)
+    return counts
+
+
+def _reset_counts():
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_flash_decode as pfd
+    from repro_torch.kernels import paged_flash_prefill as pfp
+    from repro_torch.kernels import striped_attention as sa
+
+    ops.reset_dispatch_counts()
+    for mod in (pfp, pfd, sa, fd):
+        mod.launch_counts.clear()
+
+
 def _serve(cfg, n_inst, capacity, lens, new_tokens, seed, check_oracle,
            serial=False):
     """One real-mode engine run; returns (metrics, kernel launches, dispatch
@@ -761,11 +951,7 @@ def _serve(cfg, n_inst, capacity, lens, new_tokens, seed, check_oracle,
     from repro_torch.convert import init_params
     from repro_torch.engine.request import Request
     from repro_torch.engine.server import LoongServeEngine
-    from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ops
-    from repro_torch.kernels import paged_flash_decode as pfd
-    from repro_torch.kernels import paged_flash_prefill as pfp
-    from repro_torch.kernels import striped_attention as sa
     from repro_torch.models import build_model
 
     model = build_model(cfg)
@@ -815,35 +1001,27 @@ def _serve(cfg, n_inst, capacity, lens, new_tokens, seed, check_oracle,
         for pool in eng.pool.pools:
             pool.device_kv = timed("mirror sync", pool.device_kv)
     up0 = sum(p.mirror_uploaded_slots for p in eng.pool.pools)
-    kernel_mods = (pfp, pfd, sa, fd)
     torch.cuda.reset_peak_memory_stats()
-    ops.reset_dispatch_counts()  # counts of the main path only, from here
-    for mod in kernel_mods:
-        mod.launch_counts.clear()
+    _reset_counts()  # counts of the main path only, from here
     t0 = time.perf_counter()
     m = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     spans["uploaded_slots"] = sum(p.mirror_uploaded_slots for p in eng.pool.pools) - up0
     spans["host_syncs"] = sum(p.host_syncs for p in eng.pool.pools)
-    counts = {}
-    for mod in kernel_mods:
-        counts.update(mod.launch_counts)
+    counts = _kernel_counts()
     dispatch = dict(ops.dispatch_counts)
     assert len(m.finished) == len(reqs), (len(m.finished), len(reqs))
     assert m.scaling_migration_bytes == 0, m.scaling_migration_bytes
     packed = ("packed_flash_prefill", "packed_flash_prefill_ring_chunk",
               "paged_flash_decode_partial")
     if serial:
-        for name in ("striped_flash_attention", "flash_decode_partial"):
-            assert counts.get(name, 0) > 0, (name, counts)
-        for name in packed:
-            assert counts.get(name, 0) == 0, (name, counts)
+        _expect_launches(counts, ("striped_flash_attention", "flash_decode_partial"),
+                         packed)
         assert dispatch.get("prefill_serial_model", 0) >= len(reqs), dispatch
         assert not eng._real_cache, "recurrent state of finished requests kept"
     else:
-        for name in packed:
-            assert counts.get(name, 0) > 0, (name, counts)
+        _expect_launches(counts, packed, ())
         assert dispatch.get("prefill_serial_model", 0) == 0, dispatch
     for r in reqs:
         assert len(r.output_tokens) == new_tokens, r.output_tokens
@@ -896,6 +1074,461 @@ def _serve_serial(name, cfg, lens, new_tokens, capacity, seed):
     return counts
 
 
+UNIFIED = ("paged_flash_decode_partial", "packed_flash_prefill_ring_chunk")
+
+
+def phase_unified_serve(card, cfg):
+    """Phase 9: unified serving (``prefill_chunk_tokens=512``) at full width
+    and depth: four prompts of 512-1024 tokens, then one of 4096 while they
+    decode.  Every prefill runs as a chain of unified steps (K2 prefix plane
+    + K3 chunk plane; K1 never), decode rows ride the long prompt's chain.
+    Returns the kernel launches."""
+    import torch
+
+    from repro_torch.convert import init_params
+    from repro_torch.engine.request import Phase
+    from repro_torch.kernels import decode_split, ops
+    from repro_torch.models import build_model
+
+    model = build_model(cfg, device="cuda")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(9), "cuda")
+    eng = _engine(cfg, 4, 4096, model, params, 512)
+    assert eng.executor.supports_unified
+    rng = np.random.default_rng(9)
+    lens = [int(x) for x in rng.integers(512, 1025, 4)] + [4096]
+    reqs = _requests(cfg, rng, lens, [24] * 4 + [8], [0.0] * 4 + [0.05])
+    long_r = reqs[-1]
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for pool in eng.pool.pools:  # the f32 mirrors, before the clock
+        pool.device_kv()
+    torch.cuda.synchronize()
+    mirror_build = time.perf_counter() - t0
+    spans = {}
+    state = {"chain": False, "key_rows": 0, "distinct_rows": 0, "io_bytes": 0}
+    dev_ms = {"K2": [], "K3": []}
+    plans = []
+
+    def timed(key, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                spans[key] = spans.get(key, 0.0) + time.perf_counter() - t
+        return run
+
+    def evented(key, fn):
+        """CUDA events around each launch inside the chain (device time,
+        launch gaps included); outside the chain the call passes through.
+        K2's query rows and partials are counted from their shapes."""
+        def run(q, *args, **kw):
+            if not state["chain"]:
+                return fn(q, *args, **kw)
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(q, *args, **kw)
+            b.record()
+            dev_ms[key].append((a, b))
+            if key == "K2":
+                state["io_bytes"] += q.numel() * q.element_size() + sum(
+                    t.numel() * t.element_size() for t in out)
+            return out
+        return run
+
+    ex = eng.executor
+    shards_fn = ex._unified_shards
+
+    def host_tables(segs, tb):
+        # every packed row reads its segment's whole prefix (covered ==
+        # limit, asserted by the step): as launched vs read once per segment
+        state["key_rows"] += sum(g.ln * g.limit for g in segs)
+        state["distinct_rows"] += sum(g.limit for g in segs)
+        return tables(segs, tb)
+
+    tables = timed("unified: host tables (incl. mirror sync)", shards_fn)
+    ex._unified_shards = host_tables
+    model.prefill_packed = timed("unified: model step", model.prefill_packed)
+    ex._unified_emit = timed("unified: emit", ex._unified_emit)
+    ex.decode = timed("decode outside the chain", ex.decode)
+    # the scheduler's reactive migrations move a request's KV on the host
+    # (download of its device-only slots, then upload at the destination)
+    eng.pool.migrate_request = timed("reactive migration (host KV move)",
+                                     eng.pool.migrate_request)
+    for pool in eng.pool.pools:
+        pool.device_kv = timed("mirror sync", pool.device_kv)
+    orig_ops = (ops.paged_decode_partial, ops.prefill_ring_chunk)
+    ops.paged_decode_partial = evented("K2", ops.paged_decode_partial)
+    ops.prefill_ring_chunk = evented("K3", ops.prefill_ring_chunk)
+    plan_fn = decode_split.plan
+
+    def plan(b, *a, **kw):
+        out = plan_fn(b, *a, **kw)
+        if state["chain"]:
+            plans.append((b, out[0]))
+        return out
+
+    decode_split.plan = plan
+    mix = []
+    unified_fn = ex.unified
+
+    def unified(work):
+        before = (ops.dispatch_counts["unified_prefill_tokens"],
+                  ops.dispatch_counts["unified_decode_tokens"])
+        state["chain"] = True
+        try:
+            return timed("unified: whole step", unified_fn)(work)
+        finally:
+            state["chain"] = False
+            mix.append((
+                ops.dispatch_counts["unified_prefill_tokens"] - before[0],
+                ops.dispatch_counts["unified_decode_tokens"] - before[1],
+                long_r.phase is Phase.PREFILL and long_r.prefill_pos > 0,
+            ))
+
+    ex.unified = unified
+    torch.cuda.reset_peak_memory_stats()
+    mirror0 = [(p.mirror_full_syncs, p.mirror_uploaded_slots, p.host_syncs)
+               for p in eng.pool.pools]
+    _reset_counts()
+    try:
+        t0 = time.perf_counter()
+        m = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        decode_split.plan = plan_fn
+        ops.paged_decode_partial, ops.prefill_ring_chunk = orig_ops
+    counts = _kernel_counts()
+    dispatch = dict(ops.dispatch_counts)
+    assert len(m.finished) == len(reqs), (len(m.finished), len(reqs))
+    assert m.scaling_migration_bytes == 0, m.scaling_migration_bytes
+    assert dispatch.get("unified_step", 0) > 0, dispatch
+    assert dispatch["unified_prefill_tokens"] == sum(lens), (dispatch, lens)
+    _expect_launches(counts, UNIFIED, ("packed_flash_prefill",))
+    long_iters = [(p, d) for p, d, mid in mix if mid]
+    riding = [d for _, d in long_iters if d > 0]
+    assert len(riding) >= 3, f"decode did not flow during the long prefill: {mix}"
+    big = [n for b, n in plans if b >= 512]
+    assert big and all(n == 1 for n in big), plans  # no workspace
+    for r in reqs:
+        assert len(r.output_tokens) == r.max_new_tokens, r.output_tokens
+        assert all(0 <= t < cfg.vocab_size for t in r.output_tokens)
+    k2_ms = sum(a.elapsed_time(b) for a, b in dev_ms["K2"])
+    k3_ms = sum(a.elapsed_time(b) for a, b in dev_ms["K3"])
+    n_layers = cfg.n_layers
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[unified {card}] lwm-7b full width/depth bf16, 4 instances x 4096 slots, "
+          f"prefill_chunk_tokens 512: prompts {lens} (the last at t = 0.05 s), "
+          f"24 / 8 new tokens: wall {wall:.3f} s, {dispatch['unified_step']} unified "
+          f"steps ({dispatch['unified_prefill_tokens']} prefill + "
+          f"{dispatch['unified_decode_tokens']} decode tokens), decode_iters "
+          f"{m.summary()['decode_iters']}, reactive migration "
+          f"{m.reactive_migration_bytes / 1e9:.2f} GB, max_memory_allocated {peak:.2f} GiB; "
+          f"mirror build before the clock {mirror_build:.3f} s")
+    print(f"[unified {card}] chain links while the 4096-token prompt was mid-prefill "
+          f"(prefill tokens, decode tokens): {long_iters}; {len(riding)} carried decode rows")
+    rest = wall - sum(spans.get(k, 0.0) for k in (
+        "unified: whole step", "decode outside the chain",
+        "reactive migration (host KV move)"))
+    print(f"[unified {card}] spans (s; host tables, model step and emit nest in the "
+          "whole step, mirror sync in host tables and decode; K2 / K3 run inside "
+          "the model step): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in spans.items())
+          + f", engine host (the rest of the wall) {rest:.3f}")
+    kv_b = n_layers * cfg.n_kv_heads * cfg.d_head * 8  # f32 K + V, all layers
+    distinct_s = (state["distinct_rows"] * kv_b + state["io_bytes"]) / HBM_BPS
+    launched_s = (state["key_rows"] * kv_b + state["io_bytes"]) / HBM_BPS
+    print(f"[unified {card}] prefix plane: {state['key_rows']} key-rows per layer "
+          f"over the chain, {state['key_rows'] * n_layers} over all layers "
+          f"({state['key_rows'] * kv_b / 1e12:.2f} TB of f32 K+V as launched; "
+          f"{state['distinct_rows']} per layer, {state['distinct_rows'] * kv_b / 1e9:.1f} "
+          f"GB, with each segment's prefix read once); K2 {len(dev_ms['K2'])} launches in the chain, "
+          f"{k2_ms / 1e3:.3f} s between CUDA events around them (bound over "
+          f"HBM: {distinct_s:.4f} s for the distinct prefix bytes plus "
+          f"{state['io_bytes'] / 1e9:.2f} GB of query rows and partials, "
+          f"{launched_s:.3f} s as launched); K3 "
+          f"{len(dev_ms['K3'])} launches, {k3_ms / 1e3:.3f} s; split plans "
+          f"(rows, splits): {sorted(set(plans))}")
+    mirror = [(p.mirror_full_syncs - a, p.mirror_uploaded_slots - b, p.host_syncs - c)
+              for p, (a, b, c) in zip(eng.pool.pools, mirror0)]
+    print(f"[unified {card}] pool mirrors during the run, per instance (full "
+          f"uploads, uploaded slots, host downloads): {mirror}")
+    print(f"[unified {card}] kernel launches {counts}; dispatches {dispatch}")
+    return counts
+
+
+def _engine(cfg, n, cap, model, params, chunk, **kw):
+    from repro_torch.engine.server import LoongServeEngine
+    from repro_torch.manager.scheduler import ManagerConfig
+
+    return LoongServeEngine(cfg, n, cap, store_values=True, model=model,
+                            params=params, device="cuda",
+                            mcfg=ManagerConfig(prefill_chunk_tokens=chunk), **kw)
+
+
+def _requests(cfg, rng, lens, new_tokens, arrivals):
+    from repro_torch.engine.request import Request
+
+    return [Request(input_len=n, max_new_tokens=k, arrival=t,
+                    prompt=rng.integers(0, cfg.vocab_size, n).tolist())
+            for n, k, t in zip(lens, new_tokens, arrivals)]
+
+
+def _oracle_parity(model, params, reqs, done, tag):
+    """``reqs`` hold the original prompts; ``done`` the engine's requests."""
+    from repro_torch.kernels import ref
+
+    for orig, r in zip(reqs, done):
+        want = ref.serial_decode_oracle(model, params, orig.prompt,
+                                        orig.max_new_tokens - 1)
+        assert r.output_tokens == want, (tag, r.rid, r.output_tokens, want)
+
+
+def _step_until(eng, cond, limit, what):
+    guard = 0
+    while not cond():
+        assert eng.events and guard < limit, what
+        eng.run(max_events=1)
+        guard += 1
+
+
+# the salvage topologies of tests/test_salvage.py (``_TOPOLOGIES``): (group
+# DoP, instances, per-instance capacity, long prompt); tests/test_torch_salvage.py
+# runs them as they are, phase 10 with capacity and prompt lengths x SCALE
+SALVAGE_TOPOLOGIES = [(2, 3, 220, 300), (4, 6, 170, 560)]
+SCALE = 10
+
+
+def phase_unified_parity(card, cfg):
+    """Phase 10: the unified path's token parity with the port's plain serial
+    oracle at f32: (a) chunk-resume for budgets 4096 / 37 / 1; (b) a
+    single-instance failure mid-chain at DoP 2 and 4, salvaged; (c) a
+    checkpoint mid-chain restored into a fresh engine that resumes the chain
+    at its cursor.  Sizes are the reference tests' (tests/test_unified.py,
+    tests/test_salvage.py) times ``SCALE``.  Returns the kernel launches of
+    all three."""
+    import copy
+    import tempfile
+
+    import torch
+
+    from repro_torch.convert import init_params
+    from repro_torch.engine.invariants import InvariantChecker
+    from repro_torch.engine.request import Phase
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+
+    model = build_model(cfg, device="cuda")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(10), "cuda")
+    rng = np.random.default_rng(10)
+    total = {}
+
+    def add_counts():
+        for k, v in _kernel_counts().items():
+            total[k] = total.get(k, 0) + v
+
+    # ---- (a) chunk-resume parity
+    base = [13 * SCALE, 21 * SCALE, 5 * SCALE]
+    for chunk in (4096, 37, 1):
+        reqs = _requests(cfg, rng, base, [4] * 3, [0.0] * 3)
+        eng = _engine(cfg, 2, 2000, model, params, chunk)
+        rs = copy.deepcopy(reqs)
+        for r in rs:
+            eng.submit(r)
+        _reset_counts()
+        t0 = time.perf_counter()
+        m = eng.run()
+        wall = time.perf_counter() - t0
+        d = dict(ops.dispatch_counts)
+        assert len(m.finished) == len(rs)
+        assert d["unified_prefill_tokens"] == sum(base), d
+        if chunk == 1:
+            assert d["unified_step"] >= sum(base), d
+        _expect_launches(_kernel_counts(), UNIFIED, ("packed_flash_prefill",))
+        add_counts()
+        _oracle_parity(model, params, reqs, rs, f"chunk {chunk}")
+        print(f"[parity {card}] unified chunk-resume, budget {chunk}: prompts {base} "
+              f"token-identical to the serial oracle; {d['unified_step']} unified "
+              f"steps; wall {wall:.3f} s")
+
+    # ---- (b) mid-chain failure at DoP 2 and 4: salvage, not recompute
+    for dop, n, cap, long_len in SALVAGE_TOPOLOGIES:
+        cap, long_len = cap * SCALE, long_len * SCALE
+        lens = [int(x) for x in rng.integers(20 * SCALE, 30 * SCALE, 3)] + [long_len]
+        reqs = _requests(cfg, rng, lens, [8, 8, 8, 4], [0.0] * 3 + [0.03])
+        eng = _engine(cfg, n, cap, model, params, 48 * SCALE)
+        chk = InvariantChecker(eng)
+        chk.arm()
+        rs = copy.deepcopy(reqs)
+        for r in rs:
+            eng.submit(r)
+        long_r = rs[-1]
+        _reset_counts()
+        t0 = time.perf_counter()
+        _step_until(eng, lambda: (
+            long_r.phase is Phase.PREFILL
+            and long_r.prefill_pos >= int(0.8 * long_len)
+            and len(eng.pool.request_instances(long_r.rid)) >= dop
+            and any(e[2] == "unified_done" for e in eng.events)),
+            4000, f"DoP {dop}: never reached a striped mid-chain")
+        victim = eng.pool.request_instances(long_r.rid)[0]
+        held = {rid: len(eng.pool.pools[victim].tokens_of(rid))
+                for rid in eng.pool.pools[victim].requests()}
+        stale = sum(p.stale_host_slot_count() for p in eng.pool.pools
+                    if p.instance_id != victim)
+        eng.fail_instance(victim)
+        eng.run(max_events=1)
+        rec = dict(eng._recovering)
+        assert long_r.rid in rec, f"DoP {dop}: the failure did not salvage the chain"
+        for rid, st in rec.items():
+            assert sum(e - s for s, e in st.spans) <= held.get(rid, 0), (rid, st, held)
+            assert st.salvaged > 0
+        m = eng.run()
+        wall = time.perf_counter() - t0
+        assert len(m.finished) == len(rs)
+        assert m.salvaged_tokens > 0
+        assert m.recomputed_tokens < sum(r.seq_len for r in rs)
+        assert not eng._recovering
+        assert chk.leaked_slots() == 0 and eng.pool.total_used == 0
+        _expect_launches(_kernel_counts(), UNIFIED, ("packed_flash_prefill",))
+        add_counts()
+        _oracle_parity(model, params, reqs, rs, f"salvage DoP {dop}")
+        print(f"[parity {card}] salvage at DoP {dop} ({n} instances x {cap} slots, "
+              f"prompts {lens}): instance {victim} failed mid-chain holding "
+              f"{sum(held.values())} tokens ({stale} survivor slots device-only); "
+              f"salvaged {m.salvaged_tokens}, recomputed {m.recomputed_tokens} of "
+              f"{sum(r.seq_len for r in rs)} tokens; {chk.checks} invariant checks; "
+              f"token-identical to the serial oracle; wall {wall:.3f} s")
+
+    # ---- (c) checkpoint mid-chain, restore into a fresh engine, resume
+    lens = [int(x) for x in rng.integers(20 * SCALE, 30 * SCALE, 2)] + [200 * SCALE]
+    reqs = _requests(cfg, rng, lens, [8, 8, 4], [0.0, 0.0, 0.03])
+    eng = _engine(cfg, 2, 600 * SCALE, model, params, 32 * SCALE)
+    rs = copy.deepcopy(reqs)
+    for r in rs:
+        eng.submit(r)
+    long_r = rs[-1]
+    _step_until(eng, lambda: (
+        long_r.phase is Phase.PREFILL
+        and 0 < long_r.prefill_pos < long_r.input_len
+        and any(e[2] == "unified_done" for e in eng.events)),
+        2000, "never caught the chain mid-link")
+    cursor = long_r.prefill_pos
+    stale = sum(p.stale_host_slot_count() for p in eng.pool.pools)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "mid_chain.ckpt")
+        eng.checkpoint(path)
+        size = Path(path).stat().st_size
+        eng2 = _engine(cfg, 2, 600 * SCALE, model, params, 32 * SCALE)
+        eng2.restore(path)
+    del eng
+    assert eng2._active_unified and eng2._req_index[long_r.rid].prefill_pos == cursor
+    holding = [p for p in eng2.pool.pools if p.requests()]
+    assert holding and all(p._mirror is None for p in eng2.pool.pools)
+    _reset_counts()
+    m = eng2.run()
+    d = dict(ops.dispatch_counts)
+    assert len(m.finished) == len(rs)
+    assert d["unified_prefill_tokens"] <= sum(lens) - cursor, (d, cursor)
+    # the restored pools rebuilt their mirrors on the engine's device
+    assert all(p.device == eng2.device for p in eng2.pool.pools)
+    assert all(p._mirror is not None and p._mirror[0].device.type == eng2.device.type
+               for p in holding)
+    _expect_launches(_kernel_counts(), UNIFIED, ("packed_flash_prefill",))
+    add_counts()
+    _oracle_parity(model, params, reqs, [eng2._req_index[x.rid] for x in rs],
+                   "checkpoint resume")
+    print(f"[parity {card}] checkpoint mid-chain (prompts {lens}, cursor {cursor}, "
+          f"{stale} slots device-only before the snapshot, {size / 1e6:.1f} MB): the "
+          f"restored engine resumed with {d['unified_prefill_tokens']} prefill tokens "
+          f"left of {sum(lens)}; token-identical to the serial oracle")
+    return total
+
+
+# tests/test_chaos.py's real-mode soak (test_real_chaos_soak_oracle_parity):
+# 3 instances x 600 slots, all six injectors, seed 7; tests/test_torch_chaos.py
+# runs it on the CPU
+CHAOS_RATES = dict(
+    fail_rate=0.05, rejoin_rate=0.3, straggler_rate=0.2, slowdown_rate=0.1,
+    pressure_rate=0.25, release_rate=0.15, ballast_frac=0.3,
+    dispatch_fault_rate=0.2, nan_rate=0.12, min_alive=2,
+)
+
+
+def phase_chaos(card, cfg):
+    """Phase 11: the real-mode chaos soak at f32 with all six injectors, on
+    the packed / paged path and on the unified path (chunk 16): every
+    injector fires, retries and quarantines happen, the invariant sanitizer
+    stays green after every event, nothing leaks, and every token equals
+    the serial oracle.  Returns the kernel launches."""
+    import torch
+
+    from repro_torch.chaos import ChaosConfig, ChaosMonkey
+    from repro_torch.convert import init_params
+    from repro_torch.engine.invariants import InvariantChecker
+    from repro_torch.engine.request import Phase
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import build_model
+
+    model = build_model(cfg, device="cuda")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(11), "cuda")
+    total = {}
+    for chunk in (None, 16):
+        eng = _engine(cfg, 3, 600, model, params, chunk, admission_watermark=0.15)
+        rng = np.random.default_rng(7)  # the reference test's workload
+        reqs = []
+        for i in range(10):
+            ilen = int(rng.integers(16, 49))
+            mnt = int(rng.integers(4, 9))
+            reqs += _requests(cfg, rng, [ilen], [mnt], [i * 0.01])
+        orig = [(list(r.prompt), r.max_new_tokens) for r in reqs]
+        for r in reqs:
+            eng.submit(r)
+        monkey = ChaosMonkey(eng, ChaosConfig(**CHAOS_RATES), seed=7)
+        chk = InvariantChecker(eng)
+        monkey.arm()
+        chk.arm()
+        _reset_counts()
+        t0 = time.perf_counter()
+        eng.run(max_events=300)
+        monkey.disarm()
+        m = eng.run()
+        wall = time.perf_counter() - t0
+        assert ops._fault_hook is None
+        assert all(r.phase is Phase.FINISHED for r in reqs)
+        assert chk.leaked_slots() == 0 and eng.pool.total_used == 0
+        actions = {t[1] for t in monkey.trace}
+        for a in ("fail", "rejoin", "straggle", "slowdown", "pressure",
+                  "dispatch_fault", "poison"):
+            assert a in actions, f"chunk {chunk}: injector {a!r} never fired"
+        assert m.dispatch_retries > 0 and m.nan_quarantined > 0
+        counts = _kernel_counts()
+        if chunk is None:
+            _expect_launches(counts, ("packed_flash_prefill",
+                                      "paged_flash_decode_partial"), ())
+        else:
+            _expect_launches(counts, UNIFIED, ("packed_flash_prefill",))
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        for (prompt, mnt), r in zip(orig, reqs):
+            want = ref.serial_decode_oracle(model, params, prompt, mnt - 1)
+            assert list(r.output_tokens) == want, (chunk, r.rid)
+        summ = m.summary()
+        print(f"[chaos {card}] real-mode soak, prefill_chunk_tokens {chunk}: "
+              f"{len(monkey.trace)} injections {sorted(actions)}, "
+              f"{chk.checks} invariant checks, 0 violations, 0 leaked slots; "
+              f"retries {summ['dispatch_retries']}, quarantined "
+              f"{summ['nan_quarantined']}, salvaged {summ['salvaged_tokens']}, "
+              f"recomputed {summ['recomputed_tokens']}; {len(reqs)} requests "
+              f"token-identical to the serial oracle; launches {counts}; wall {wall:.3f} s")
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -924,6 +1557,7 @@ def main() -> int:
     phase_build()
     rec: dict = {}
     phase_kernels(rec, smi.splitlines()[0])
+    phase_unified_kernels(rec, smi.splitlines()[0])
     phase_attention_kernels(rec, smi.splitlines()[0])
 
     from repro_torch.configs import get_config
@@ -994,6 +1628,28 @@ def main() -> int:
               f"serial oracle; launches {counts8}; wall {wall8:.3f} s")
         gc.collect()
         torch.cuda.empty_cache()
+
+    # ---- phase 9: unified serving at full width and depth, bf16
+    card = smi.splitlines()[0]
+    c_uni = phase_unified_serve(card, cfg)
+    for key, name in (("K1", "packed_flash_prefill"),
+                      ("K3", "packed_flash_prefill_ring_chunk"),
+                      ("K2", "paged_flash_decode_partial")):
+        rec[key]["launches_by_path"] = {"packed/paged (phase 4)": rec[key]["launches"],
+                                        "unified (phase 9)": c_uni.get(name, 0)}
+        rec[key]["launches"] += c_uni.get(name, 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phases 10-11: unified parity, salvage, checkpoint and chaos, f32
+    t10 = time.perf_counter()
+    phase_unified_parity(card, cfg2)
+    print(f"[parity] phase 10 took {time.perf_counter() - t10:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t11 = time.perf_counter()
+    phase_chaos(card, cfg2)
+    print(f"[chaos] phase 11 took {time.perf_counter() - t11:.1f} s")
 
     order = ("K1", "K3", "K2", "K4", "K5")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -428,3 +428,122 @@ def test_split_decode_many_rows_on_card(cuda_device):
     ln = torch.as_tensor(lengths, dtype=torch.int32, device=cuda_device)
     _close_partial(tfd.flash_decode_partial(q, k, v, ln),
                    tfd.flash_decode_partial_plain(q, k, v, ln))
+
+
+# ------------------------- the unified step's shapes (K2 prefix, K3 chunk)
+
+
+def _prefix_plane(rng, prefixes, seg_lens, pad, page, kvh, d, dev):
+    """Per-token operands of the unified prefix plane on an f32 pool:
+    request i (``prefixes[i]`` keys on scattered pages) owns ``seg_lens[i]``
+    consecutive packed rows, each carrying the request's whole table row;
+    row j of a segment sits at global position prefix + j; ``pad``
+    trailing rows hold nothing.  Returns (pages..., table, lengths, pos,
+    query positions)."""
+    kp, vp, bt, ln, pos = _paged_pool(rng, prefixes, page, kvh, d,
+                                      torch.float32, dev)
+    owner = torch.as_tensor(np.repeat(np.arange(len(prefixes)), seg_lens),
+                            device=dev)
+    n = owner.numel()
+    table = torch.zeros((n + pad, bt.shape[1]), dtype=torch.int32, device=dev)
+    lengths = torch.zeros(n + pad, dtype=torch.int32, device=dev)
+    table[:n], lengths[:n] = bt[owner], ln[owner]
+    qpos = np.zeros(n + pad, np.int32)
+    qpos[:n] = np.concatenate([p + np.arange(s) for p, s in zip(prefixes, seg_lens)])
+    return kp, vp, table, lengths, pos, torch.as_tensor(qpos, device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 37, 512, 4096])
+@pytest.mark.parametrize("page", [1, 16])
+def test_unified_prefix_plane_on_card(cuda_device, b, page):
+    """K2 at the unified step's shape: one row per packed token (B from 1 to
+    4096), many rows sharing a request's table, prefixes of 63 / 64 / 65
+    keys around a tile edge, rows with no prefix, padding rows, bf16 q on
+    the f32 pool; with and without a window; and every row empty."""
+    rng = np.random.default_rng(b + page)
+    kvh, h, d = 2, 8, 64
+    cycle = [63, 64, 65, 0, 130, 1]
+    prefixes, seg_lens, used = [], [], 0
+    while used < b:
+        n = min(int(rng.integers(1, 200)) if len(prefixes) % 3 == 0 else 1,
+                b - used)
+        prefixes.append(cycle[len(prefixes) % len(cycle)])
+        seg_lens.append(n)
+        used += n
+    pad = int(seg_lens[-1] > 1)  # a padding tail where the last segment is a chunk
+    seg_lens[-1] -= pad
+    kp, vp, bt, ln, pos, qpos = _prefix_plane(rng, prefixes, seg_lens, pad,
+                                              page, kvh, d, cuda_device)
+    q = torch.from_numpy(rng.normal(size=(b, 1, h, d)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    for window in (None, 40):
+        kw = dict(query_pos=qpos, window=window)
+        _close_partial(tpfd.paged_flash_decode_partial(q, kp, vp, bt, ln, pos, **kw),
+                       tpfd.paged_flash_decode_partial_plain(q, kp, vp, bt, ln, pos, **kw))
+    empty = torch.zeros_like(ln)
+    got = tpfd.paged_flash_decode_partial(q, kp, vp, bt, empty, pos)
+    _close_partial(got, tpfd.paged_flash_decode_partial_plain(q, kp, vp, bt, empty, pos))
+    assert torch.isinf(got.m).all() and (got.l == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 48])
+def test_unified_chunk_plane_on_card(cuda_device, dtype, window):
+    """K3 as the unified step's chunk plane (n_shards = 1): three chunks,
+    then 40 one-row decode segments (a 64-row q tile spans dozens of
+    segments), then a padding tail, folded into a carry taken from K2 whose
+    rows with no prefix are empty (m = -inf, l = 0); and the whole layer
+    (`core.unified.unified_chunk_attention`, two pool shards) on the card
+    against its plain composition on the CPU."""
+    from repro_torch.core import unified as tu
+
+    dt = getattr(torch, dtype)
+    tc = dt == torch.bfloat16
+    rng = np.random.default_rng(41)
+    kvh, h, d = 2, 8, 64
+    chunks = [(0, 70), (37, 9), (64, 130)]
+    decodes = [int(x) for x in rng.integers(0, 140, 40)]
+    decodes[::7] = [0] * len(decodes[::7])
+    prefixes = [p for p, _ in chunks] + decodes
+    seg_lens = [n for _, n in chunks] + [1] * len(decodes)
+    pad = 23
+    t = sum(seg_lens) + pad
+    off = np.full(len(seg_lens) + 5, sum(seg_lens), np.int32)
+    off[0] = 0
+    off[1:len(seg_lens) + 1] = np.cumsum(seg_lens)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+            cuda_device, dt)
+
+    q, k, v = rand(t, h, d), rand(t, kvh, d), rand(t, kvh, d)
+    shards = []
+    for s in range(2):
+        # shard 0 holds each prefix's first half, shard 1 the rest
+        part = [x // 2 if s == 0 else x - x // 2 for x in prefixes]
+        kp, vp, bt, ln, pos, qpos = _prefix_plane(rng, part, seg_lens, pad, 16,
+                                                  kvh, d, cuda_device)
+        shards.append((kp, vp, bt, ln, pos))
+    p = tpfd.paged_flash_decode_partial(q[:, None], *shards[0][:4])
+    carry = (p.o[:, 0], p.m[:, 0], p.l[:, 0])
+    assert torch.isinf(carry[1][:chunks[0][1]]).all()  # chunk 0: no prefix
+    assert (carry[2] == 0).any() and (carry[2] > 0).any()
+    kw = dict(q_shard=0, k_shard=0, n_shards=1, window=window)
+    got = tpfp.packed_flash_prefill_ring_chunk(q, k, v, off, off, carry, **kw)
+    want = tpfp.packed_flash_prefill_ring_chunk_plain(q, k, v, off, off, carry, **kw)
+    if tc:
+        _close_partial_tc(got, want, v)
+    else:
+        for g_, w_ in zip(got, want):
+            _close(g_, w_)
+    qpos = torch.as_tensor(np.concatenate(
+        [pp + np.arange(n) for pp, n in zip(prefixes, seg_lens)] + [np.zeros(pad)]
+    ).astype(np.int32), device=cuda_device)
+    got = tu.unified_chunk_attention(q, k, v, off, qpos, shards, window=window)
+    cpu = lambda x: x.cpu()  # noqa: E731
+    want = tu.unified_chunk_attention(
+        cpu(q), cpu(k), cpu(v), off, cpu(qpos),
+        [tuple(map(cpu, s)) for s in shards], window=window)
+    _close_tc(got, want, v) if tc else _close(got, want)
