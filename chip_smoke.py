@@ -67,13 +67,39 @@ Phases (each one fails the run with a non-zero exit; none is caught):
   11. the real-mode chaos soak of tests/test_chaos.py at full width, 2
      layers, f32 (all six injectors), on the packed / paged path and on
      the unified path: every injector fires, zero invariant violations and
-     leaks, tokens equal the serial oracle.
+     leaks, tokens equal the serial oracle;
+  12. serve full-width, full-depth xlstm-350m (ssm: 3 x (7 mLSTM + 1
+     sLSTM) blocks, no attention) in bf16 through the serial path, 4
+     instances, 6 requests of 512-2048 prompt tokens, 16 new tokens each:
+     no kernel launches at all, the recurrent state on the card in
+     ``engine._real_cache``; spans for serial prefill (the sLSTM scan on
+     its own), decode and ``max_memory_allocated``;
+  13. ssm / audio parity: xlstm-350m width, one superblock, f32 — the
+     engine's greedy tokens equal the model's greedy prefill + decode loop,
+     and prefill + one decode equals ``forward`` (also for full-width,
+     full-depth whisper-tiny, f32) within 3e-3 x (max|logit| + 1); then
+     whisper-tiny in bf16 at its real shapes (4 x 1500 encoder frames, a
+     448-token decoder prompt, 32 greedy decode steps over a padded cache):
+     K4 and K5 launched, K1-K3 not, every step's logits within
+     3e-2 x (max|logit| + 1) of the same run through the plain attention;
+  14. the serve CLI in process: ``repro_torch.launch.serve.main(["--real",
+     ...])`` (reduced lwm-7b, f32, on the card) finishes every request with
+     zero migration and tokens equal to the serial oracle on the engine the
+     CLI built, then every ``--system`` in sim mode; its K1-K3 launches are
+     listed under ``launches_by_path`` and not added to the rows' totals.
 
-Phases 2-3 also hold K2 and K3 at the unified step's shapes (K2: B = 512
+Phases 2-3 also hold K4 and K5 at whisper-tiny's width (H = KVH = 6, D =
+64, q_per_kv 1; K4: B = 4, causal, S 448 and 1500, bf16 and f32; K5: B =
+4 over 480 keys, 479 valid in every row and ragged rows), timed as device
+time from CUDA graphs, beside SDPA ``is_causal`` and the flash call
+(``at_whisper_width`` fields of the K4 / K5 rows), and K2 and K3 at the
+unified step's shapes (K2: B = 512
 per-token rows over tables 4096 wide, a third of them empty; K3: n_shards
 = 1, four chunks, 32 one-row segments and padding, carried from K2's
 output) and add their times and both K2 bounds (distinct bytes, bytes as
-launched) to the K2 / K3 rows as ``unified_*`` fields.
+launched) to the K2 / K3 rows as ``unified_*`` fields.  Phase 2 also holds
+K1, K3 (rings of 2, 4 and 8 shards) and K2 at phase 14's shapes (reduced
+lwm-7b: f32, H = KVH = 4, D = 32, page size 1, the CLI's own prompts).
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -527,8 +553,68 @@ def phase_kernels(rec, card):
             want = pfd.paged_flash_decode_partial_plain(*a, **dkw)
             _check(f"K2 page={page} {tag}", got, want, log)
             assert torch.isinf(got.m[0]).all() and (got.l[0] == 0).all()
+    _check_cli_shapes(log, randn, rng)
     print("\n".join(log))
     torch.cuda.empty_cache()
+
+
+def _check_cli_shapes(log, randn, rng):
+    """K1, K3 and K2 at the shapes phase 14's ``serve --real`` gives them:
+    reduced lwm-7b (f32, H = KVH = 4, D = 32, page size 1), the CLI's own
+    sharegpt prompts as one packed batch, K3 through full rings of 2, 4 and
+    8 shards (each step against the plain step on the same carry, then the
+    finalized ring against plain K1), K2 over those prompts' decode
+    contexts."""
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import striped
+    from repro_torch.data import poisson_workload
+    from repro_torch.kernels import paged_flash_decode as pfd
+    from repro_torch.kernels import paged_flash_prefill as pfp
+
+    cfg = reduced(get_config("lwm-7b"))
+    H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    f32 = torch.float32
+    lens = [r.input_len for r in poisson_workload("sharegpt", 8, 0.5, seed=0,
+                                                   max_len=256)]
+    tag = f"serve CLI shapes (H = {H}, KVH = {KVH}, D = {D}, f32, prompts {lens})"
+    T = -(-sum(lens) // 64) * 64  # bucket padding: its own segment
+    off = _offsets(lens, len(lens) + 1)
+    q, k, v = randn(T, H, D, dtype=f32), randn(T, KVH, D, dtype=f32), randn(T, KVH, D, dtype=f32)
+    k1 = pfp.packed_flash_prefill_plain(q, k, v, off)
+    _check(f"K1 {tag}", pfp.packed_flash_prefill(q, k, v, off), k1, log)
+    for n in (2, 4, 8):
+        offs = [striped.shard_offsets(off, n, r) for r in range(n)]
+        sched = striped.ring_chunk_schedule(n)
+        kc, pc, steps = [None] * n, [None] * n, []
+        for step in range(n):
+            for r in range(n):
+                c = sched[step][r]
+                args = (q[r::n].contiguous(), k[c::n].contiguous(),
+                        v[c::n].contiguous(), offs[r], offs[c])
+                kw = dict(q_shard=r, k_shard=c, n_shards=n)
+                kc[r] = pfp.packed_flash_prefill_ring_chunk(*args, pc[r], **kw)
+                pc[r] = pfp.packed_flash_prefill_ring_chunk_plain(*args, pc[r], **kw)
+                # one summary line per ring: a failing step prints its own
+                steps.append(_check(f"K3 n={n} step={step} shard={r} {tag}",
+                                    kc[r], pc[r], log[:1]))
+        ring = striped.unstripe(torch.cat([_fin(o, l) for o, _, l in kc]), n, axis=0)
+        _check(f"K3 ring n={n} {tag}: finalized vs plain K1", ring, k1, log)
+        log[-1] += f"; {len(steps)} steps, max step err {max(steps):.3e}"
+    ctx = np.asarray(lens, np.int32) + 15  # the CLI's 16 new tokens
+    b, n_slots = len(lens), int(ctx.sum()) + 8
+    kp, vp = randn(n_slots, 1, KVH, D, dtype=f32), randn(n_slots, 1, KVH, D, dtype=f32)
+    perm = rng.permutation(n_slots)
+    table = np.zeros((b, int(ctx.max())), np.int32)
+    c0 = 0
+    for i in range(b):
+        table[i, :ctx[i]] = perm[c0:c0 + ctx[i]]
+        c0 += ctx[i]
+    a = (randn(b, 1, H, D, dtype=f32), kp, vp, torch.as_tensor(table, device=q.device),
+         torch.as_tensor(ctx, device=q.device))
+    _check(f"K2 page=1 {tag}", pfd.paged_flash_decode_partial(*a),
+           pfd.paged_flash_decode_partial_plain(*a), log)
 
 
 # the unified step's operands at lwm-7b width: (prefix, rows) of each
@@ -691,7 +777,8 @@ def _valid_keys(lens, s, offset, window):
 
 def _k5_flash(q, kvs, ln, s, off, window, log, tag):
     """K5's function as one PyTorch call, timed as the kernel is: flash
-    attention of each GQA group's q rows over the row's valid keys returns
+    attention of each GQA group's q rows over the rows' valid keys (the
+    same range in every row) returns
     (output, logsumexp), which is the partial (o = output, m = logsumexp,
     l = 1).  Held once against the plain partial, both finalized.  Returns
     (ms, how it was timed, the call's name)."""
@@ -701,7 +788,8 @@ def _k5_flash(q, kvs, ln, s, off, window, log, tag):
 
     b, _, h, d = q.shape
     kvh = kvs[0][0].shape[2]
-    n = int(ln[0])  # B = 1: the row's valid keys [lo, hi) in shard coordinates
+    assert len(set(ln.tolist())) == 1, "one valid key range for every row"
+    n = int(ln[0])  # the rows' valid keys [lo, hi) in shard coordinates
     hi = max(0, min(s, n - off))
     lo = min(hi, max(0, n - window + 1 - off)) if window else 0
     q4 = q.view(b, kvh, h // kvh, d)
@@ -823,11 +911,50 @@ def phase_attention_kernels(rec, card):
               f"({by}; {flops / 1e9:.1f} GFLOP over {pairs} pairs, "
               f"{bytes_ / 1e6:.1f} MB)")
         del q4, k4, v4
+    # ---- K4 at whisper width: whisper-tiny's decoder self-attention
+    # prefill (H = KVH = 6, D = 64, causal, no window), B = 4 as in phase
+    # 13; launches this small take microseconds, so device time from CUDA
+    # graphs, for the kernel and for SDPA alike
+    whisper = {}
+    for s_ in (448, 1500):
+        b, h, d = 4, 6, 64
+        q, k, v = randn(b, s_, h, d), randn(b, s_, h, d), randn(b, s_, h, d)
+        pos = ipos(ar(s_))
+        kw = dict(causal=True, window=None, softcap=None)
+        tag = f"whisper B=4 S={s_}"
+        k4_err = max(k4_err, _check(
+            f"K4 {tag}", sa.striped_flash_attention(q, k, v, pos, pos, **kw),
+            sa.striped_flash_attention_plain(q, k, v, pos, pos, **kw), log, v=v))
+        qf, kf, vf = q.float(), k.float(), v.float()
+        _check(f"K4 {tag} f32", sa.striped_flash_attention(qf, kf, vf, pos, pos, **kw),
+               sa.striped_flash_attention_plain(qf, kf, vf, pos, pos, **kw), log)
+        f32_ms, _ = _device_ms(lambda i: sa.striped_flash_attention(qf, kf, vf, pos, pos,
+                                                                    **kw))
+        del qf, kf, vf
+        pairs = b * s_ * (s_ + 1) // 2
+        flops = 4 * h * d * pairs
+        bytes_ = 4 * b * s_ * h * d * q.element_size()  # q, k, v read, o written
+        ms, how = _device_ms(lambda i: sa.striped_flash_attention(q, k, v, pos, pos, **kw))
+        plain_ms = _time_ms(lambda: sa.striped_flash_attention_plain(
+            q, k, v, pos, pos, **kw), 3, 1)
+        q4, k4, v4 = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib_ms, _ = _device_ms(lambda i: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True))
+        bound = max(flops / PEAK_BF16, bytes_ / HBM_BPS) * 1e3
+        by = "operations" if flops / PEAK_BF16 > bytes_ / HBM_BPS else "bytes"
+        whisper[f"B4_S{s_}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                    bound_by=by, library_ms=lib_ms)
+        print(f"[time {card}] K4 {tag}: kernel {ms:.4f} ms ({how}), "
+              f"{_rates(flops, ms, bound)}, plain {plain_ms:.3f} ms, sdpa "
+              f"{lib_ms:.4f} ms ({how}), f32 route {f32_ms:.4f} ms, bound "
+              f"{bound:.5f} ms ({by}; {flops / 1e9:.2f} GFLOP, {bytes_ / 1e6:.2f} MB)")
+        del q4, k4, v4
     rec["K4"] = dict(
         name="striped_flash_attention", route="cuda",
         source="src/repro_torch/csrc/striped_attention.cu",
         replaces="src/repro/kernels/striped_attention.py:102",
-        max_abs_err=k4_err, **timed["mixtral S=6144 window=4096"])
+        max_abs_err=k4_err, **timed["mixtral S=6144 window=4096"],
+        at_whisper_width=whisper)
 
     # ---- K5: (tag, B, S, lengths, offset, H, KVH, D, q dtype, kv dtype,
     # window, softcap); the first three are the serial decode's shapes
@@ -844,7 +971,14 @@ def phase_attention_kernels(rec, card):
          32, 8, 128, bf16, f32, 1000, None),
         ("zamba2 B=4 f32 softcap", 4, 700, [0, 1, 350, 700], 0, 32, 32, 80,
          f32, f32, None, 30.0),
+        # whisper-tiny's decode history (H = KVH = 6, D = 64): phase 13's
+        # last step (B = 4, 479 cached keys each), then ragged rows
+        ("whisper B=4 ctx=479", 4, 480, [479] * 4, 0, 6, 6, 64, bf16, bf16,
+         None, None),
+        ("whisper B=4 ragged", 4, 480, [0, 200, 448, 479], 0, 6, 6, 64, bf16,
+         bf16, None, None),
     ]
+    untimed = ("mixtral B=1 ctx=8192", "whisper B=4 ragged")
     k5_err = 0.0
     for tag, b, s, lens, off, h, kvh, d, qdt, kvdt, window, softcap in k5_cases:
         q = randn(b, 1, h, d, dtype=qdt)
@@ -858,7 +992,7 @@ def phase_attention_kernels(rec, card):
         for i, x in enumerate(lens):
             if _valid_keys([x], s, off, window) == 0:
                 assert torch.isinf(got.m[i]).all() and (got.l[i] == 0).all(), tag
-        if tag.startswith("mixtral B=1 ctx=8192"):
+        if tag.startswith(untimed):
             continue
         n_valid = _valid_keys(lens, s, off, window)
         nbytes = (2 * n_valid * kvh * d * k.element_size() + b * h * d * q.element_size()
@@ -876,7 +1010,7 @@ def phase_attention_kernels(rec, card):
         bound = max(nbytes / HBM_BPS, flops / PEAK_BF16) * 1e3
         by = "bytes" if nbytes / HBM_BPS >= flops / PEAK_BF16 else "operations"
         lib_ms, lib = None, ""
-        if b == 1:  # the serial path's shape: one flash call over the valid keys
+        if len(set(lens)) == 1:  # the serial paths' shapes: one flash call
             lib_ms, lib_how, lib_name = _k5_flash(q, kvs, ln, s, off, window, log,
                                                   tag)
             lib = f", {lib_name} {lib_ms:.4f} ms ({lib_how})"
@@ -900,6 +1034,10 @@ def phase_attention_kernels(rec, card):
                 replaces="src/repro/kernels/flash_decode.py:98",
                 ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 library_ms=lib_ms)
+        if tag.startswith("whisper"):
+            rec["K5"]["at_whisper_width"] = {"B4_ctx479": dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms)}
         del kvs
     rec["K5"]["max_abs_err"] = k5_err
     print("\n".join(log))
@@ -941,23 +1079,24 @@ def _reset_counts():
 
 def _serve(cfg, n_inst, capacity, lens, new_tokens, seed, check_oracle,
            serial=False):
-    """One real-mode engine run; returns (metrics, kernel launches, dispatch
-    counts, wall seconds, {stage: seconds} spans).  ``serial`` families (moe,
-    hybrid) take the per-request path: K4 and K5 must launch and K1-K3 not;
-    otherwise the packed / paged path: K1-K3 must launch and no serial
-    prefill run."""
+    """One real-mode engine run, built as the serve CLI builds it; returns
+    (metrics, kernel launches, dispatch counts, wall seconds, {stage:
+    seconds} spans).  ``serial`` families (moe, hybrid, ssm) take the
+    per-request path: K4 and K5 must launch and K1-K3 not (no kernel at all
+    for the attention-free ssm family); otherwise the packed / paged path:
+    K1-K3 must launch and no serial prefill run."""
     import torch
 
     from repro_torch.convert import init_params
     from repro_torch.engine.request import Request
-    from repro_torch.engine.server import LoongServeEngine
     from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_engine
     from repro_torch.models import build_model
 
     model = build_model(cfg)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
-    eng = LoongServeEngine(cfg, n_inst, capacity, store_values=True,
-                           model=model, params=params)
+    eng = build_engine("loongserve", cfg, n_inst, capacity, store_values=True,
+                       model=model, params=params)
     rng = np.random.default_rng(seed)
     reqs = [Request(input_len=n, max_new_tokens=new_tokens, arrival=0.0,
                     prompt=rng.integers(0, cfg.vocab_size, n).tolist())
@@ -1015,9 +1154,12 @@ def _serve(cfg, n_inst, capacity, lens, new_tokens, seed, check_oracle,
     assert m.scaling_migration_bytes == 0, m.scaling_migration_bytes
     packed = ("packed_flash_prefill", "packed_flash_prefill_ring_chunk",
               "paged_flash_decode_partial")
+    serial_attn = ("striped_flash_attention", "flash_decode_partial")
+    if serial and cfg.n_attention_applications:
+        _expect_launches(counts, serial_attn, packed)
+    elif serial:  # attention-free (xLSTM): no kernel at all
+        _expect_launches(counts, (), packed + serial_attn)
     if serial:
-        _expect_launches(counts, ("striped_flash_attention", "flash_decode_partial"),
-                         packed)
         assert dispatch.get("prefill_serial_model", 0) >= len(reqs), dispatch
         assert not eng._real_cache, "recurrent state of finished requests kept"
     else:
@@ -1529,6 +1671,262 @@ def phase_chaos(card, cfg):
     return total
 
 
+def phase_xlstm_serve(card):
+    """Phase 12: full-width, full-depth xlstm-350m (ssm: 21 mLSTM + 3 sLSTM
+    blocks, no attention) in bf16 through the serial path; the sLSTM scan
+    (a Python loop over the prompt's tokens) is timed on its own."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import param_shapes
+    from repro_torch.models import xlstm
+    from repro_torch.models.transformer import xlstm_layout
+
+    cfg = get_config("xlstm-350m")
+    n_super, m_per = xlstm_layout(cfg)
+    d_in = int(cfg.xlstm_proj_factor * cfg.d_model)
+    dh = d_in // cfg.n_heads
+    state_mb = n_super * m_per * cfg.n_heads * (dh * dh + dh + 1) * 4 / 1e6
+
+    def numel(tree):
+        if isinstance(tree, dict):
+            return sum(numel(v) for v in tree.values())
+        return int(np.prod(tree[0]))
+
+    n_params = numel(param_shapes(cfg))
+    print(f"[serve] xlstm-350m: {n_params / 1e9:.3f} B parameters "
+          f"({n_params * 2 / 1e9:.2f} GB in bf16; the config's estimate "
+          f"{cfg.param_count() / 1e9:.3f} B), {n_super} x ({m_per} mLSTM + 1 "
+          f"sLSTM) blocks, mLSTM state {state_mb:.1f} MB per request (f32)")
+    scan_spans = {}
+    scan = xlstm.slstm_scan
+
+    def timed_scan(p, xm, cfg_, state):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            return scan(p, xm, cfg_, state)
+        finally:
+            torch.cuda.synchronize()
+            key = "sLSTM scan (prefill)" if xm.shape[1] > 1 else "sLSTM step (decode)"
+            scan_spans[key] = scan_spans.get(key, 0.0) + time.perf_counter() - t
+
+    lens = [int(x) for x in np.random.default_rng(12).integers(512, 2049, 6)]
+    xlstm.slstm_scan = timed_scan
+    try:
+        m, counts, dispatch, wall, spans = _serve(cfg, 4, 4096, lens, 16, 12,
+                                                  False, serial=True)
+    finally:
+        xlstm.slstm_scan = scan
+    _report("xlstm-350m full depth bf16", cfg, m, counts, dispatch, wall,
+            {**spans, **scan_spans}, lens, 16)
+    host = (spans.get("decode: host gather of the KV", 0.0)
+            + spans.get("host->device uploads (KV, tokens)", 0.0))
+    print(f"[serve] xlstm-350m: wall split: serial prefill {spans.get('prefill', 0.0):.3f} s "
+          f"(sLSTM scan {scan_spans.get('sLSTM scan (prefill)', 0.0):.3f} s of it), "
+          f"decode {spans.get('decode', 0.0):.3f} s (host gather + upload "
+          f"{host:.3f} s of it: the pool's one zero layer of an attention-free "
+          f"model; sLSTM steps {scan_spans.get('sLSTM step (decode)', 0.0):.3f} s)")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _forward_vs_decode(cfg, seed, b, t, tag):
+    """Logits of `prefill` + one `decode` over a padded cache against
+    `forward` over the whole sequence, within tests/test_arch_smoke.py's
+    3e-3 x (max|logit| + 1)."""
+    import torch
+
+    from repro_torch.convert import init_params
+    from repro_torch.models import build_model
+
+    dev = torch.device("cuda")
+    model = build_model(cfg)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, t + 1)), device=dev)
+    batch = {"tokens": toks[:, :t]}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.randn(
+            (b, cfg.encoder_seq, cfg.d_model), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(seed)) * 0.05
+    full, _ = model.forward(params, dict(batch, tokens=toks))
+    _, cache = model.prefill(params, batch)
+    if cache.k is not None:
+        pad = cache.k.new_zeros(cache.k.shape[:2] + (t + 4,) + cache.k.shape[3:])
+        k_pad, v_pad = pad, pad.clone()
+        k_pad[:, :, :t] = cache.k
+        v_pad[:, :, :t] = cache.v
+        cache = cache._replace(k=k_pad, v=v_pad)
+    dec, _, _ = model.decode(params, toks[:, t], cache)
+    scale = full[:, -1].abs().max().item() + 1.0
+    err = (dec - full[:, -1]).abs().max().item()
+    print(f"[parity] {tag}: prefill + decode vs forward: max abs err {err:.3e} "
+          f"(tol 3e-3 x {scale:.3f} = {3e-3 * scale:.3e})")
+    assert torch.isfinite(full).all() and err < 3e-3 * scale, (tag, err, scale)
+
+
+def phase_ssm_audio_parity(card, rec):
+    """Phase 13: xlstm token parity and forward-vs-decode logits (f32), then
+    whisper-tiny in bf16 at its real shapes through K4 and K5."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import init_params
+    from repro_torch.kernels.ref import PlainAttnImpl
+    from repro_torch.models import build_model
+
+    # ---- (a) xlstm-350m width, one superblock (7 mLSTM + 1 sLSTM), f32:
+    # the engine's greedy tokens equal the model's own prefill + decode loop
+    x13 = dataclasses.replace(get_config("xlstm-350m"), n_layers=8, dtype="float32")
+    lens = [129, 300, 777, 1024]  # chunk = min(256, T): below, across, a multiple
+    _, counts, _, wall, _ = _serve(x13, 4, 4096, lens, 6, 13, True, serial=True)
+    print(f"[parity] xlstm-350m width, 1 superblock, f32: {len(lens)} requests "
+          f"(prompts {lens}) token-identical to the greedy prefill + decode "
+          f"loop; launches {counts}; wall {wall:.3f} s")
+    # ---- (b) prefill + decode against forward: xlstm (as above) and
+    # full-width, full-depth whisper-tiny, f32
+    _forward_vs_decode(x13, 13, 2, 300, "xlstm-350m width, 1 superblock, f32")
+    wh = get_config("whisper-tiny")
+    _forward_vs_decode(dataclasses.replace(wh, dtype="float32"), 14, 2, 64,
+                       "whisper-tiny full width and depth, f32")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (c) whisper-tiny in bf16 at its real shapes: 4 x 1500 encoder
+    # frames, a 448-token decoder prompt, 32 greedy decode steps over a
+    # padded cache; K4 runs the decoder's self-attention prefill, K5 its
+    # decode history
+    dev = torch.device("cuda")
+    model = build_model(wh)
+    params = init_params(wh, torch.Generator(device=dev).manual_seed(15))
+    gen = torch.Generator(device=dev).manual_seed(15)
+    b, t, steps = 4, 448, 32
+    frames = torch.randn((b, wh.encoder_seq, wh.d_model), device=dev,
+                         generator=gen) * 0.05
+    prompt = torch.randint(0, wh.vocab_size, (b, t), device=dev, generator=gen)
+
+    def run(impl, forced=None):
+        """Prefill + `steps` greedy decode steps (or the `forced` tokens);
+        returns (tokens [B, steps + 1], logits of every step)."""
+        prev = model.attn_impl
+        if impl is not None:
+            model.attn_impl = impl
+        try:
+            logits, cache = model.prefill(params, {"frames": frames, "tokens": prompt},
+                                          last_logit_only=True)
+            rows = [logits[:, 0]]
+            pad = cache.k.new_zeros(cache.k.shape[:2] + (t + steps,) + cache.k.shape[3:])
+            k_pad, v_pad = pad, pad.clone()
+            k_pad[:, :, :t] = cache.k
+            v_pad[:, :, :t] = cache.v
+            cache = cache._replace(k=k_pad, v=v_pad)
+            out = [rows[0].argmax(-1)]
+            for i in range(steps):
+                tok = out[-1] if forced is None else forced[:, i]
+                logits, cache, kvs = model.decode(params, tok, cache)
+                cache.k[:, :, t + i:t + i + 1] = kvs[0]
+                cache.v[:, :, t + i:t + i + 1] = kvs[1]
+                rows.append(logits)
+                out.append(logits.argmax(-1))
+            torch.cuda.synchronize()
+            return torch.stack(out, 1), torch.stack(rows, 1)
+        finally:
+            model.attn_impl = prev
+
+    _reset_counts()  # counts of this run only, from here
+    t0 = time.perf_counter()
+    toks, logits = run(None)
+    wall = time.perf_counter() - t0
+    counts = _kernel_counts()
+    _expect_launches(counts, ("striped_flash_attention", "flash_decode_partial"),
+                     ("packed_flash_prefill", "packed_flash_prefill_ring_chunk",
+                      "paged_flash_decode_partial"))
+    assert torch.isfinite(logits).all() and logits.shape == (b, steps + 1, wh.vocab_size)
+    assert toks.shape == (b, steps + 1)
+    # the same tokens through the plain attention: every step's logits agree
+    # within 3e-2 x (max|logit| + 1) — bf16 activations, and K4's bf16
+    # output may sit one bf16 step (2^-8 relative) from the plain one in
+    # each of the 4 layers
+    _, plain = run(PlainAttnImpl(), forced=toks[:, :steps])
+    scale = plain.abs().max().item() + 1.0
+    err = (logits - plain).abs().max().item()
+    print(f"[parity] whisper-tiny bf16, {b} x {wh.encoder_seq} frames, {t}-token "
+          f"prompt, {steps} decode steps: wall {wall:.3f} s; launches {counts}; "
+          f"logits vs the plain attention max abs err {err:.3e} (tol 3e-2 x "
+          f"{scale:.3f} = {3e-2 * scale:.3e})")
+    assert err < 3e-2 * scale, (err, scale)
+    for key, name in (("K4", "striped_flash_attention"), ("K5", "flash_decode_partial")):
+        rec[key]["launches_by_path"]["whisper bf16 (phase 13)"] = counts.get(name, 0)
+        rec[key]["launches"] += counts.get(name, 0)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_cli(card, rec):
+    """Phase 14: ``python -m repro_torch.launch.serve`` in process: real mode
+    on the card (reduced lwm-7b, f32), whose every request's tokens must
+    equal the port's plain serial oracle on the engine the CLI built, then
+    every system in sim mode."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+
+    def cli(*args):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = serve.main(list(args))
+        out = buf.getvalue()
+        assert rc == 0, (args, rc)
+        return json.loads(out[out.index("{"):])
+
+    built = []
+    build = serve.build_engine
+
+    def capture(*args, **kw):  # keeps the engine the CLI builds
+        built.append(build(*args, **kw))
+        return built[-1]
+
+    serve.build_engine = capture
+    _reset_counts()  # counts of the CLI's real run only, from here
+    t0 = time.perf_counter()
+    try:
+        data = cli("--real", "--dataset", "sharegpt", "--n", "8", "--json")
+    finally:
+        serve.build_engine = build
+    wall = time.perf_counter() - t0
+    counts = _kernel_counts()
+    assert data["n_finished"] == 8 and data["scaling_migration_bytes"] == 0, data
+    _expect_launches(counts, ("packed_flash_prefill_ring_chunk",
+                              "paged_flash_decode_partial"), ())
+    (eng,) = built
+    done = eng.metrics.finished
+    _oracle_parity(eng.model, eng.params, done, done, "serve CLI --real")
+    print(f"[cli] serve --real --dataset sharegpt --n 8 (reduced lwm-7b, f32, on "
+          f"the card): {data['n_finished']} finished, migration "
+          f"{data['scaling_migration_bytes']} B, decode_iters {data['decode_iters']}, "
+          f"wall {wall:.3f} s; launches {counts}; {len(done)} requests "
+          "token-identical to the serial oracle")
+    # the run's launches are K1-K3's at reduced width (checked in phase 2 at
+    # these shapes): listed by path, not added to the rows timed at lwm-7b width
+    for key, name in (("K1", "packed_flash_prefill"),
+                      ("K3", "packed_flash_prefill_ring_chunk"),
+                      ("K2", "paged_flash_decode_partial")):
+        rec[key]["launches_by_path"]["serve CLI --real (phase 14)"] = counts.get(name, 0)
+    del eng, built, done
+    for system in serve.SYSTEMS:
+        data = cli("--system", system, "--dataset", "sharegpt", "--rate", "2",
+                   "--n", "12", "--json")
+        assert data["n_finished"] > 0, (system, data)
+        if system == "loongserve":
+            assert data["n_finished"] == 12 and data["scaling_migration_bytes"] == 0
+        print(f"[cli] serve --system {system} (sim, H100 cost model, n 12): "
+              f"{data['n_finished']} finished, {data['rejected']} rejected, "
+              f"norm_e2e_mean {data['norm_e2e_mean']:.6f} s/token")
+
+
 def main() -> int:
     try:
         import torch
@@ -1650,6 +2048,21 @@ def main() -> int:
     t11 = time.perf_counter()
     phase_chaos(card, cfg2)
     print(f"[chaos] phase 11 took {time.perf_counter() - t11:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phases 12-14: xlstm-350m serving, ssm / audio parity, the CLI
+    for key in ("K4", "K5"):
+        rec[key]["launches_by_path"] = {"mixtral + zamba2 (phases 6-7)":
+                                        rec[key]["launches"]}
+    for n, phase in ((12, lambda: phase_xlstm_serve(card)),
+                     (13, lambda: phase_ssm_audio_parity(card, rec)),
+                     (14, lambda: phase_cli(card, rec))):
+        t_ph = time.perf_counter()
+        phase()
+        print(f"[phase {n}] took {time.perf_counter() - t_ph:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
 
     order = ("K1", "K3", "K2", "K4", "K5")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -1,4 +1,4 @@
-"""Parameters for the PyTorch model: converted from the JAX pytree, or drawn
+"""Parameters for the PyTorch models: converted from the JAX pytree, or drawn
 on the device.
 
 The parameter tree keeps the reference's key names and the stacked-layer
@@ -15,13 +15,22 @@ moe replaces "ffn" by "moe": {"router": [L, d, E], "w_gate"/"w_up":
 Mamba2 layers as [n_super, per, ...] under "layers": {"mamba_layers":
 {"mamba": {...}, "norm": {...}}} and adds the one shared block
 "shared_attn", "shared_ffn", "shared_norms": {"n1", "n2"} (unstacked).
+ssm (xLSTM) stacks twice: "layers": {"mlstm_layers": {"cell", "norm"}} with
+leaves [n_super, m_per, ...] and "layers": {"slstm": {"cell", "norm"}} with
+leaves [n_super, ...].  The encoder-decoder (whisper) has "embed",
+"pos_embed" [max_seq_len, d], "enc_layers" {"attn", "norm1", "ffn",
+"norm2"} [L_enc, ...], "dec_layers" {"self_attn", "cross_attn", "norm1"-
+"norm3", "ffn"} [L, ...], "enc_norm", "final_norm" and "lm_head".
 
 `params_from_numpy` takes that tree as nested dicts of numpy arrays (a test
-turns the JAX `Model.init` pytree into one with ``jax.tree.map(np.asarray,
+turns the JAX `init` pytree into one with ``jax.tree.map(np.asarray,
 params)``; this module never sees JAX).  `init_params` draws the same tree
 directly on the device from a `torch.Generator`, as the reference's init
-does: normal(0, 0.02) weights (0.5 for the Mamba2 conv), ones for norm
-scales, zeros for biases, and the Mamba2 A_log / dt_bias draws in f32.
+does: normal(0, 0.02) weights (0.5 for the Mamba2 conv, 0.01 for whisper's
+``pos_embed``, 0.1 for the mLSTM gate projection ``w_if``, 0.05 for the
+sLSTM recurrence ``r_zifo``), ones for norm scales, zeros for biases, the
+Mamba2 A_log / dt_bias draws in f32, and the xLSTM gate biases in f32
+(forget bias 3.0, the others 0).
 """
 from __future__ import annotations
 
@@ -33,15 +42,21 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import normal_init
-from repro_torch.models.transformer import require_ported, torch_dtype
+from repro_torch.models.transformer import torch_dtype, xlstm_layout
+
+# std of each normal init kind, and the value of each constant f32 kind
+_NORMAL = {"normal": 0.02, "conv": 0.5, "pos_embed": 0.01, "w_if": 0.1,
+           "r_zifo": 0.05}
+_F32_FILL = {"ones_f32": 1.0, "zeros_f32": 0.0, "forget_bias": 3.0}
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
-    """The parameter tree of a ported family as nested dicts of
-    ``(shape, kind)`` leaves; kind is "normal" (0.02), "conv" (normal 0.5),
-    "ones", "zeros", or one of the f32 Mamba2 leaves "a_log", "dt_bias",
-    "ones_f32" (`init_params` draws each as the reference's init does)."""
-    require_ported(cfg)
+    """The parameter tree of a config as nested dicts of ``(shape, kind)``
+    leaves; kind is a normal draw (`_NORMAL`: "normal" 0.02, "conv",
+    "pos_embed", "w_if", "r_zifo"), "ones", "zeros", an f32 constant
+    (`_F32_FILL`: "ones_f32", "zeros_f32", "forget_bias") or one of the f32
+    Mamba2 draws "a_log", "dt_bias" (`init_params` draws each as the
+    reference's init does)."""
     d, hd = cfg.d_model, cfg.head_dim
     h, kvh = cfg.n_heads, cfg.n_kv_heads
 
@@ -51,14 +66,14 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
             n["bias"] = (lead + (d,), "zeros")
         return n
 
-    def attn(lead=()):
+    def attn(lead=(), bias=cfg.qkv_bias):
         a = {
             "wq": (lead + (d, h, hd), "normal"),
             "wk": (lead + (d, kvh, hd), "normal"),
             "wv": (lead + (d, kvh, hd), "normal"),
             "wo": (lead + (h, hd, d), "normal"),
         }
-        if cfg.qkv_bias:
+        if bias:
             a["bq"] = (lead + (h, hd), "zeros")
             a["bk"] = (lead + (kvh, hd), "zeros")
             a["bv"] = (lead + (kvh, hd), "zeros")
@@ -70,6 +85,21 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
             fp["w_gate"] = (lead + (d, f), "normal")
         return fp
 
+    if cfg.is_encoder_decoder:
+        le, ld = (cfg.n_encoder_layers,), (cfg.n_layers,)
+        return {
+            "embed": ((cfg.vocab_size, d), "normal"),
+            "pos_embed": ((cfg.max_seq_len, d), "pos_embed"),
+            "enc_layers": {"attn": attn(le, False), "norm1": norm(le),
+                           "ffn": ffn(cfg.d_ff, le), "norm2": norm(le)},
+            "dec_layers": {"self_attn": attn(ld, False),
+                           "cross_attn": attn(ld, False), "norm1": norm(ld),
+                           "norm2": norm(ld), "norm3": norm(ld),
+                           "ffn": ffn(cfg.d_ff, ld)},
+            "enc_norm": norm(),
+            "final_norm": norm(),
+            "lm_head": ((d, cfg.vocab_size), "normal"),
+        }
     tree: Dict[str, Any] = {
         "embed": ((cfg.vocab_size, d), "normal"),
         "final_norm": norm(),
@@ -97,6 +127,34 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
         tree["shared_attn"] = attn()
         tree["shared_ffn"] = ffn(cfg.d_ff)
         tree["shared_norms"] = {"n1": norm(), "n2": norm()}
+        return tree
+    if cfg.family == "ssm":
+        n_super, m_per = xlstm_layout(cfg)
+        sl, ml = (n_super,), (n_super, m_per)
+        d_in = int(cfg.xlstm_proj_factor * d)
+        dh = d_in // h
+        mlstm = {
+            "w_up": (ml + (d, 2 * d_in), "normal"),
+            "w_q": (ml + (d_in, d_in), "normal"),
+            "w_k": (ml + (d_in, d_in), "normal"),
+            "w_v": (ml + (d_in, d_in), "normal"),
+            "w_o": (ml + (d_in, d_in), "normal"),
+            "w_if": (ml + (d_in, 2 * h), "w_if"),
+            "b_i": (ml + (h,), "zeros_f32"),
+            "b_f": (ml + (h,), "forget_bias"),
+            "w_down": (ml + (d_in, d), "normal"),
+        }
+        slstm = {
+            "w_up": (sl + (d, 2 * d_in), "normal"),
+            "w_zifo": (sl + (d_in, 4 * d_in), "normal"),
+            "r_zifo": (sl + (4, h, dh, dh), "r_zifo"),
+            "b_zifo": (sl + (4 * d_in,), "zeros_f32"),
+            "w_down": (sl + (d_in, d), "normal"),
+        }
+        tree["layers"] = {
+            "mlstm_layers": {"cell": mlstm, "norm": norm(ml)},
+            "slstm": {"cell": slstm, "norm": norm(sl)},
+        }
         return tree
     layer = {"attn": attn(L), "norm1": norm(L), "norm2": norm(L)}
     if cfg.family == "moe":
@@ -166,15 +224,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         if isinstance(spec, dict):
             return {k: make(s) for k, s in spec.items()}
         shape, kind = spec
-        if kind in ("normal", "conv"):
-            return normal_init(shape, dt, generator, dev,
-                               scale=0.5 if kind == "conv" else 0.02)
+        if kind in _NORMAL:
+            return normal_init(shape, dt, generator, dev, scale=_NORMAL[kind])
         if kind == "a_log":  # A = -exp(A_log) with -A ~ U(1, 16)
             return uniform(shape, 1.0, 16.0).log()
         if kind == "dt_bias":  # inverse softplus of dt ~ U(1e-3, 0.1)
             return torch.log(torch.expm1(uniform(shape, 1e-3, 0.1)))
-        if kind == "ones_f32":
-            return torch.ones(shape, dtype=torch.float32, device=dev)
+        if kind in _F32_FILL:
+            return torch.full(shape, _F32_FILL[kind], dtype=torch.float32,
+                              device=dev)
         fill = torch.ones if kind == "ones" else torch.zeros
         return fill(shape, dtype=dt, device=dev)
 

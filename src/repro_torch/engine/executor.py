@@ -13,10 +13,11 @@ launches and KV writes, on the engine's device:
     pool mirrors in place, partials LSE-merged multi-master style;
   * per-request serial prefill and decode for the families the packed and
     paged impls do not cover (moe: capacity dropping depends on the batch;
-    hybrid: recurrent state), through the model's default attention — one
-    K4 launch per attention layer per prefill, one K5 launch per attention
-    layer per decode step.  A hybrid's recurrent state stays on the device
-    in ``engine._real_cache`` between steps.
+    hybrid and ssm: recurrent state), through the model's default
+    attention — one K4 launch per attention layer per prefill, one K5
+    launch per attention layer per decode step (none for the
+    attention-free ssm family, which has no KV).  The recurrent state stays
+    on the device in ``engine._real_cache`` between steps.
 
   * the unified chunked step (``ManagerConfig(prefill_chunk_tokens=...)``,
     and every salvage recovery chain): a bounded chunk of each admitted
@@ -245,13 +246,14 @@ class LocalExecutor:
             if row is None:
                 continue  # quarantined: no first token, engine requeues
             r.output_tokens.append(eng._sample_token(row))
-            k = cache.k[:, 0].float().cpu().numpy()  # [L, T, KVH, D]
-            v = cache.v[:, 0].float().cpu().numpy()
-            for inst, positions in batch.placement[r.rid].items():
-                if positions and inst not in eng.failed:
-                    eng.pool.pools[inst].fill(
-                        r.rid, positions, k[:, positions], v[:, positions]
-                    )
+            if cache.k is not None:  # the ssm family has no KV
+                k = cache.k[:, 0].float().cpu().numpy()  # [L, T, KVH, D]
+                v = cache.v[:, 0].float().cpu().numpy()
+                for inst, positions in batch.placement[r.rid].items():
+                    if positions and inst not in eng.failed:
+                        eng.pool.pools[inst].fill(
+                            r.rid, positions, k[:, positions], v[:, positions]
+                        )
             if cache.ssm is not None:
                 eng._real_cache[r.rid] = cache.ssm  # stays on the device
 
@@ -334,11 +336,12 @@ class LocalExecutor:
             # cache holds tokens 0..seq_len-2; the processed token's KV is
             # produced by this step and appended at the master afterwards
             n_cached = r.seq_len - 1
-            assert len(positions) == n_cached, (len(positions), n_cached)
+            if k is not None:
+                assert len(positions) == n_cached, (len(positions), n_cached)
             dt = eng.model.dtype
             cache = Cache(
-                k=self._to_dev(k[:, None]).to(dt),
-                v=self._to_dev(v[:, None]).to(dt),
+                k=self._to_dev(k[:, None]).to(dt) if k is not None else None,
+                v=self._to_dev(v[:, None]).to(dt) if v is not None else None,
                 length=self._to_dev(np.asarray([n_cached], np.int32)),
                 ssm=eng._real_cache.get(r.rid),
             )
@@ -352,11 +355,12 @@ class LocalExecutor:
             r.output_tokens.append(eng._sample_token(row))
             if new_cache.ssm is not None:
                 eng._real_cache[r.rid] = new_cache.ssm
-            # stash; _on_decode_done fills it once the slot is allocated
-            eng._pending_kv[r.rid] = (
-                kvs[0][:, 0].float().cpu().numpy(),  # [L, 1, KVH, D]
-                kvs[1][:, 0].float().cpu().numpy(),
-            )
+            if kvs is not None:
+                # stash; _on_decode_done fills it once the slot is allocated
+                eng._pending_kv[r.rid] = (
+                    kvs[0][:, 0].float().cpu().numpy(),  # [L, 1, KVH, D]
+                    kvs[1][:, 0].float().cpu().numpy(),
+                )
 
     # ------------------------------------------------------------- unified
     @property

@@ -2,8 +2,8 @@
 
 `BaseServingEngine` owns the clock, the event queue, the distributed KV pool,
 the SIB and metrics; `LoongServeEngine` drives it with the four-step global
-manager (ESP). Baselines (the reference's `repro.baselines`; not ported yet)
-subclass the same loop so the comparison is apples-to-apples: identical
+manager (ESP). Baselines (`repro_torch.baselines`, copies of the
+reference's) subclass the same loop so the comparison is apples-to-apples: identical
 cost model, pool accounting and request lifecycle — only the policy
 differs.
 
@@ -508,8 +508,10 @@ class LoongServeEngine(BaseServingEngine):
 
     Real-mode compute is delegated to an executor (engine/executor.py):
     `LocalExecutor` runs the in-process packed/paged paths on ``device``
-    (``"cuda"`` by default; construction raises when no CUDA device is
-    present, and tests pass ``device="cpu"`` explicitly).  The multi-device
+    (``"cuda"`` by default; real-mode construction raises when no CUDA
+    device is present, and tests pass ``device="cpu"`` explicitly).  A
+    sim-mode engine holds no tensors: it resolves no device (``device`` is
+    None) and runs anywhere, as the reference's does.  The multi-device
     mesh executor is not ported yet (ROADMAP queue 1 item 13).  The engine
     itself holds NO kernel dispatch — only scheduling, lifecycle and
     accounting."""
@@ -519,8 +521,8 @@ class LoongServeEngine(BaseServingEngine):
                  device="cuda", **kwargs):
         from repro_torch.device import resolve_device
 
-        self.device = resolve_device(device)
         super().__init__(*args, **kwargs)
+        self.device = resolve_device(device) if self.real else None
         self.manager = GlobalManager(self.cfg, self.sib, self.pool,
                                      mcfg or ManagerConfig())
         self.ready_decode: List[DecodeBatch] = []

@@ -62,11 +62,18 @@ class PlainAttnImpl:
         p_new = A.partial_attention(q, k_new, v_new, None, softcap=softcap)
         return A.finalize_partial(A.merge_partial(p_hist, p_new)).to(q.dtype)
 
+    def ssm_scan(self, kind, p, x, cfg, state):
+        """The recurrent layers hold no kernel: the default impl's scan."""
+        from repro_torch.models.transformer import DefaultAttnImpl
+
+        return DefaultAttnImpl().ssm_scan(kind, p, x, cfg, state)
+
 
 def serial_decode_oracle(model, params, prompt, n_decode: int) -> list:
     """Greedy token oracle for engine parity: one serial prefill over
     `prompt` followed by ``n_decode`` dense-cache decode steps (argmax,
-    KV appended in place), with the model's attention swapped for
+    KV appended in place; an attention-free model carries only its
+    recurrent state), with the model's attention swapped for
     `PlainAttnImpl` for the duration (the way the executor swaps impls).
     Returns the ``n_decode + 1`` emitted token ids — what a real-mode engine
     must reproduce exactly."""
@@ -85,20 +92,22 @@ def _serial_decode(model, params, prompt, n_decode: int) -> list:
     nxt = int(torch.argmax(logits[0, -1]))
     out = [nxt]
     n_in = len(prompt)
-    s_max = n_in + n_decode + 2
-    shape = (cache.k.shape[0], 1, s_max) + tuple(cache.k.shape[3:])
-    k_pad = torch.zeros(shape, dtype=cache.k.dtype, device=dev)
-    v_pad = torch.zeros_like(k_pad)
-    k_pad[:, :, :n_in] = cache.k
-    v_pad[:, :, :n_in] = cache.v
-    cache = cache._replace(k=k_pad, v=v_pad)
+    if cache.k is not None:
+        s_max = n_in + n_decode + 2
+        shape = (cache.k.shape[0], 1, s_max) + tuple(cache.k.shape[3:])
+        k_pad = torch.zeros(shape, dtype=cache.k.dtype, device=dev)
+        v_pad = torch.zeros_like(k_pad)
+        k_pad[:, :, :n_in] = cache.k
+        v_pad[:, :, :n_in] = cache.v
+        cache = cache._replace(k=k_pad, v=v_pad)
     for _ in range(n_decode):
         logits, cache, kvs = model.decode(
             params, torch.as_tensor([nxt], device=dev), cache
         )
-        pos = int(cache.length[0]) - 1
-        cache.k[:, :, pos:pos + 1] = kvs[0]
-        cache.v[:, :, pos:pos + 1] = kvs[1]
+        if kvs is not None:
+            pos = int(cache.length[0]) - 1
+            cache.k[:, :, pos:pos + 1] = kvs[0]
+            cache.v[:, :, pos:pos + 1] = kvs[1]
         nxt = int(torch.argmax(logits[0]))
         out.append(nxt)
     return out

@@ -1,4 +1,4 @@
-"""Model zoo (PyTorch): the dense / vlm / moe / hybrid architectures driven by
+"""Model zoo (PyTorch): every architecture of the reference, driven by
 ModelConfig."""
 from __future__ import annotations
 
@@ -6,9 +6,13 @@ from repro_torch.configs.base import ModelConfig
 
 
 def build_model(cfg: ModelConfig, device="cuda", **kwargs):
-    """Factory: the `Model` of a ported family on `device` (``"cuda"`` by
-    default; raises when no CUDA device exists — pass ``device="cpu"``
-    explicitly)."""
+    """Factory: the model class of the config's family on `device`
+    (``"cuda"`` by default; raises when no CUDA device exists — pass
+    ``device="cpu"`` explicitly)."""
+    if cfg.is_encoder_decoder:
+        from repro_torch.models.encdec import EncDecModel
+
+        return EncDecModel(cfg, device=device, **kwargs)
     from repro_torch.models.transformer import Model
 
     return Model(cfg, device=device, **kwargs)

@@ -1,0 +1,187 @@
+"""Whisper-style encoder-decoder (the audio family): the PyTorch counterpart
+of `repro/models/encdec.py`.
+
+The conv/audio frontend is a stub, as in the reference: ``batch["frames"]``
+carries precomputed frame embeddings [B, encoder_seq, d_model].  Encoder =
+bidirectional attention stack; decoder = causal self-attention (KV-cached,
+placed by the engine) + cross-attention over the encoder output (static KV).
+
+Only the decoder's self-attention goes through `attn_impl`: with the default
+impl, K4 for prefill and K5 for the decode history.  The encoder's attention
+and the cross-attention are plain `attention.full_attention`, as the
+reference computes them outside any kernel.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import layers
+from repro_torch.models.transformer import (
+    Cache,
+    DefaultAttnImpl,
+    _lead,
+    layer_params,
+    torch_dtype,
+)
+
+
+class EncDecModel(nn.Module):
+    """Holds no tensors itself: the parameter tree (`repro_torch.convert`)
+    is an explicit argument of every entry point."""
+
+    def __init__(self, cfg: ModelConfig, attn_impl=None, device="cuda"):
+        super().__init__()
+        assert cfg.is_encoder_decoder
+        from repro_torch.device import resolve_device
+
+        self.cfg = cfg
+        self.attn_impl = attn_impl or DefaultAttnImpl()
+        self.dtype = torch_dtype(cfg.dtype)
+        self.device = resolve_device(device)
+
+    # ------------------------------------------------------------- attention
+    def _proj(self, x, w):
+        """[B,T,d] x [d,H,hd] -> [B,T,H,hd]."""
+        return (x @ w.reshape(w.shape[0], -1)).view(
+            x.shape[0], x.shape[1], w.shape[1], w.shape[2])
+
+    def _out(self, o, w):
+        """[B,T,H,hd] x [H,hd,d] -> [B,T,d]."""
+        return o.reshape(o.shape[0], o.shape[1], -1) @ w.reshape(-1, w.shape[-1])
+
+    def _qkv(self, p, xq, xkv):
+        return self._proj(xq, p["wq"]), self._proj(xkv, p["wk"]), \
+            self._proj(xkv, p["wv"])
+
+    # --------------------------------------------------------------- encoder
+    def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = frames.to(self.dtype)
+        x = x + layers.sinusoidal_positions(x.shape[1], cfg.d_model,
+                                            device=x.device).to(self.dtype)
+        enc = params["enc_layers"]
+        for li in range(_lead(enc)):
+            lp = layer_params(enc, li)
+            h = layers.apply_norm(lp["norm1"], x, cfg.norm_kind, cfg.norm_eps)
+            q, k, v = self._qkv(lp["attn"], h, h)
+            o = attn.full_attention(q, k, v, causal=False)
+            x = x + self._out(o, lp["attn"]["wo"])
+            h = layers.apply_norm(lp["norm2"], x, cfg.norm_kind, cfg.norm_eps)
+            x = x + layers.apply_ffn(lp["ffn"], h, cfg.ffn_kind)
+        return layers.apply_norm(params["enc_norm"], x, cfg.norm_kind,
+                                 cfg.norm_eps)
+
+    # --------------------------------------------------------------- decoder
+    def _decoder_stack(self, params, x, enc_out, positions, *, k_caches=None,
+                       v_caches=None, cross_k=None, cross_v=None,
+                       cache_len=None, decode=False):
+        """Returns (x, (k, v) self-attention KV stacked [L, B, T, KVH, D],
+        (cross_k, cross_v) stacked likewise — None on decode).  On decode
+        `cache_len` is [B]."""
+        cfg = self.cfg
+        dec = params["dec_layers"]
+        ks, vs, cks, cvs = [], [], [], []
+        for li in range(_lead(dec)):
+            lp = layer_params(dec, li)
+            h = layers.apply_norm(lp["norm1"], x, cfg.norm_kind, cfg.norm_eps)
+            q, k, v = self._qkv(lp["self_attn"], h, h)
+            if decode:
+                o = self.attn_impl.decode_attn(q, k_caches[li], v_caches[li], k, v,
+                                               cache_len, window=None, softcap=None)
+            else:
+                o = self.attn_impl.prefill_attn(q, k, v, positions, positions,
+                                                causal=True, window=None,
+                                                softcap=None)
+            ks.append(k)
+            vs.append(v)
+            x = x + self._out(o, lp["self_attn"]["wo"])
+            # cross attention over the static encoder KV
+            h = layers.apply_norm(lp["norm2"], x, cfg.norm_kind, cfg.norm_eps)
+            if decode:
+                q = self._proj(h, lp["cross_attn"]["wq"])
+                ck, cv = cross_k[li], cross_v[li]
+            else:
+                q, ck, cv = self._qkv(lp["cross_attn"], h, enc_out)
+                cks.append(ck)
+                cvs.append(cv)
+            o = attn.full_attention(q, ck, cv, causal=False)
+            x = x + self._out(o, lp["cross_attn"]["wo"])
+            h = layers.apply_norm(lp["norm3"], x, cfg.norm_kind, cfg.norm_eps)
+            x = x + layers.apply_ffn(lp["ffn"], h, cfg.ffn_kind)
+        kvs = (torch.stack(ks), torch.stack(vs))
+        if decode:
+            return x, kvs, None
+        return x, kvs, (torch.stack(cks), torch.stack(cvs))
+
+    def _embed_tokens(self, params, tokens, positions):
+        x = layers.embed_lookup(params["embed"], tokens).to(self.dtype)
+        pe = params["pos_embed"][positions].to(self.dtype)
+        if pe.ndim == 2:
+            pe = pe[None]
+        return x + pe
+
+    def _final(self, params, x):
+        return layers.apply_norm(params["final_norm"], x, self.cfg.norm_kind,
+                                 self.cfg.norm_eps)
+
+    # ---------------------------------------------------------------- public
+    def hidden(self, params, batch, positions=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Final-normed decoder hidden states [B,T,d] and a zero aux loss."""
+        enc_out = self.encode(params, batch["frames"])
+        tokens = batch["tokens"]
+        if positions is None:
+            positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x = self._embed_tokens(params, tokens, positions)
+        x, _, _ = self._decoder_stack(params, x, enc_out, positions)
+        return self._final(params, x), torch.zeros((), device=x.device)
+
+    def unembed(self, params, x):
+        return layers.lm_head_logits(x, params["lm_head"])
+
+    def forward(self, params, batch, positions=None):
+        """Teacher-forced forward. batch: {frames, tokens}.  Returns
+        (logits [B,T,V], aux loss 0)."""
+        x, aux = self.hidden(params, batch, positions)
+        return self.unembed(params, x), aux
+
+    def prefill(self, params, batch, positions=None, *,
+                last_logit_only: bool = False) -> Tuple[torch.Tensor, Cache]:
+        enc_out = self.encode(params, batch["frames"])
+        tokens = batch["tokens"]
+        b, t = tokens.shape
+        if positions is None:
+            positions = torch.arange(t, device=tokens.device)
+        x = self._embed_tokens(params, tokens, positions)
+        x, (k, v), (ck, cv) = self._decoder_stack(params, x, enc_out, positions)
+        x = self._final(params, x)
+        if last_logit_only:
+            pos = torch.as_tensor(positions, device=x.device).expand(t)
+            x = x[:, int(torch.argmax(pos))][:, None, :]
+        cache = Cache(k=k, v=v,
+                      length=torch.full((b,), t, dtype=torch.int32,
+                                        device=x.device),
+                      cross_k=ck, cross_v=cv)
+        return self.unembed(params, x), cache
+
+    def decode(self, params, tokens, cache: Cache):
+        """One decode step over the padded self-attention cache; returns
+        (logits [B,V], cache with length+1, per-layer new KV (k, v) each
+        [L,B,1,KVH,D]) — the caller places the new KV, as for `Model`."""
+        if tokens.ndim == 1:
+            tokens = tokens[:, None]
+        b = tokens.shape[0]
+        cl = torch.as_tensor(cache.length, device=tokens.device).expand(b)
+        x = self._embed_tokens(params, tokens, cl[:, None].long())
+        x, kvs, _ = self._decoder_stack(
+            params, x, None, None, k_caches=cache.k, v_caches=cache.v,
+            cross_k=cache.cross_k, cross_v=cache.cross_v, cache_len=cl,
+            decode=True,
+        )
+        logits = self.unembed(params, self._final(params, x))[:, 0]
+        return logits, cache._replace(length=cache.length + 1), kvs
+

@@ -6,6 +6,8 @@ explicit parameter dicts of tensors, same layouts (``w_up [d, f]``,
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -68,6 +70,16 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, d_rot: int
     r1 = x1 * c - x2 * s
     r2 = x2 * c + x1 * s
     return torch.cat([r1, r2, rest], dim=-1)
+
+
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings [n, d] (float32)."""
+    half = d // 2
+    log_timescale = math.log(10000.0) / max(half - 1, 1)
+    inv = torch.exp(-log_timescale * torch.arange(half, dtype=torch.float32,
+                                                  device=device))
+    scaled = torch.arange(n, dtype=torch.float32, device=device)[:, None] * inv[None, :]
+    return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=1)
 
 
 # ---------------------------------------------------------------- FFN

@@ -1,5 +1,7 @@
 """Decoder model: the PyTorch counterpart of `repro/models/transformer.py`
-for the dense, vlm, moe and hybrid (zamba2) families.
+for the dense, vlm, moe, hybrid (zamba2) and ssm (xLSTM) families; the
+encoder-decoder (whisper) is `models.encdec.EncDecModel`, built on the same
+attention impl and `Cache`.
 
 Parameters stay a nested dict of tensors with the reference's key names and
 the stacked-layer layout ``[L, ...]`` (see `repro_torch.convert`), and every
@@ -9,7 +11,9 @@ set converted from the JAX pytree drives both packages in the parity tests.
   * Attention is pluggable (`attn_impl`): the default runs the kernels K4
     (prefill) and K5 (decode history) through `kernels.ops`; the
     packed-prefill / striped-ring / multi-master paged-decode impls from
-    `repro_torch.core` plug in here for the dense family.
+    `repro_torch.core` plug in here for the dense family.  The recurrent
+    layers' prefill goes through the impl's `ssm_scan` hook, as in the
+    reference.
   * `positions` is an explicit input everywhere, so the striped permutation
     is transparent to the model (RoPE and masks are position-based).
   * The reference's `lax.scan` over stacked layers is a Python loop over
@@ -18,9 +22,8 @@ set converted from the JAX pytree drives both packages in the parity tests.
   * hybrid: superblocks of `hybrid_mamba_per_block` Mamba2 layers followed
     by ONE application of the shared attention + FFN block (one parameter
     set for all superblocks); the recurrent state rides in `Cache.ssm`.
-
-The ssm (xLSTM) family and encoder-decoders raise NotImplementedError: they
-are ROADMAP queue 1 item 11.
+  * ssm: superblocks of ``m_per`` mLSTM blocks and one sLSTM block; no KV
+    (`Cache.k` is None), the (mLSTM, sLSTM) states ride in `Cache.ssm`.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, moe, ssm
+from repro_torch.models import layers, moe, ssm, xlstm
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -88,6 +91,18 @@ class DefaultAttnImpl:
         out = attn.finalize_partial(attn.merge_partial(p_hist, p_new))
         return out.to(q.dtype)
 
+    def ssm_scan(self, kind, p, x, cfg, state):
+        """Recurrent-layer hook (sequence parallelism adds its cross-device
+        state handoff here).  kind: "mamba" | "mlstm" | "slstm"; returns
+        (y, new_state)."""
+        if kind == "mamba":
+            return ssm.mamba2_forward(p, x, cfg, state)
+        if kind == "mlstm":
+            return xlstm.mlstm_block_forward(p, x, cfg, state)
+        if kind == "slstm":
+            return xlstm.slstm_block_forward(p, x, cfg, state)
+        raise ValueError(kind)  # pragma: no cover
+
 
 class Cache(NamedTuple):
     """KV / recurrent state for decode. Fields unused by a family are None."""
@@ -95,27 +110,28 @@ class Cache(NamedTuple):
     k: Optional[torch.Tensor] = None  # [L,B,S,KVH,Dh]
     v: Optional[torch.Tensor] = None
     length: Optional[torch.Tensor] = None  # [B] valid token count
-    ssm: Optional[Any] = None  # hybrid: SSMState, leaves [n_super, per, B, ...]
+    # hybrid: SSMState, leaves [n_super, per, B, ...]; ssm: (MLSTMState with
+    # leaves [n_super, m_per, B, ...], SLSTMState with leaves [n_super, B, ...])
+    ssm: Optional[Any] = None
+    cross_k: Optional[torch.Tensor] = None  # whisper cross-attention [L,B,S_enc,KVH,Dh]
+    cross_v: Optional[torch.Tensor] = None
 
 
-def require_ported(cfg: ModelConfig) -> None:
-    """Raise for a family whose model is not ported yet."""
-    if cfg.family not in ("dense", "vlm", "moe", "hybrid") \
-            or cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to PyTorch yet "
-            "(ROADMAP queue 1 item 11)"
-        )
+def xlstm_layout(cfg: ModelConfig) -> Tuple[int, int]:
+    """(n_super, m_per) of an xLSTM stack: superblocks of m_per mLSTM
+    blocks and one sLSTM block."""
+    every = cfg.xlstm_slstm_every or (cfg.n_layers + 1)
+    n_super = max(cfg.n_layers // every, 1)
+    return n_super, cfg.n_layers // n_super - 1
 
 
 class Model(nn.Module):
-    """Decoder of the ported families.  Holds no tensors itself: the
+    """Decoder of every decoder-only family.  Holds no tensors itself: the
     parameter tree is an explicit argument of every entry point, as in the
     reference."""
 
     def __init__(self, cfg: ModelConfig, attn_impl=None, device="cuda"):
         super().__init__()
-        require_ported(cfg)
         from repro_torch.device import resolve_device
 
         self.cfg = cfg
@@ -180,9 +196,10 @@ class Model(nn.Module):
         return self._out_proj(p, out), (k_new, v_new)
 
     def _ffn_or_moe(self, p, x):
+        """Returns (y, moe load-balance aux loss; 0 for a plain FFN)."""
         cfg = self.cfg
         if cfg.family != "moe":
-            return layers.apply_ffn(p["ffn"], x, cfg.ffn_kind)
+            return layers.apply_ffn(p["ffn"], x, cfg.ffn_kind), 0.0
         b, s = x.shape[0], x.shape[1]
         # S-major flatten, as the reference (its sharding reason does not
         # apply here; the order decides which tokens capacity drops)
@@ -193,15 +210,16 @@ class Model(nn.Module):
         y = mo.out.reshape(s, b, cfg.d_model).transpose(0, 1)
         if cfg.dense_ff:
             y = y + layers.apply_ffn(p["dense_ffn"], x, cfg.ffn_kind)
-        return y
+        return y, mo.aux_loss
 
     # ====================================================== dense stack
     def _dense_stack(self, params, x, positions, *, k_caches=None,
                      v_caches=None, cache_len=None, decode=False):
-        """Python loop over the stacked layers; returns (x, (k, v)) with the
-        per-layer KV stacked on a leading [L] axis."""
+        """Python loop over the stacked layers; returns (x, moe aux loss,
+        (k, v)) with the per-layer KV stacked on a leading [L] axis."""
         cfg = self.cfg
         ks, vs = [], []
+        aux = 0.0
         for li in range(_n_layers(params)):
             lp = layer_params(params["layers"], li)
             h = layers.apply_norm(lp["norm1"], x, cfg.norm_kind, cfg.norm_eps)
@@ -213,10 +231,12 @@ class Model(nn.Module):
                 y, (k, v) = self._attn_block_prefill(lp["attn"], h, positions)
             x = x + y
             h = layers.apply_norm(lp["norm2"], x, cfg.norm_kind, cfg.norm_eps)
-            x = x + self._ffn_or_moe(lp, h)
+            y, aux_l = self._ffn_or_moe(lp, h)
+            x = x + y
+            aux = aux + aux_l
             ks.append(k)
             vs.append(v)
-        return x, (torch.stack(ks), torch.stack(vs))
+        return x, aux, (torch.stack(ks), torch.stack(vs))
 
     # ===================================================== hybrid stack
     def _hybrid_stack(self, params, x, positions, *, ssm_states=None,
@@ -239,7 +259,8 @@ class Model(nn.Module):
                     st = ssm.SSMState(ssm_states.h[si, j], ssm_states.conv[si, j])
                     y, st = ssm.mamba2_decode_step(mp["mamba"], h, cfg, st)
                 else:
-                    y, st = ssm.mamba2_forward(mp["mamba"], h, cfg)
+                    y, st = self.attn_impl.ssm_scan("mamba", mp["mamba"], h,
+                                                    cfg, None)
                 x = x + y
                 sh.append(st.h)
                 sc.append(st.conv)
@@ -261,7 +282,64 @@ class Model(nn.Module):
         states = ssm.SSMState(h=torch.stack(hs), conv=torch.stack(convs))
         return x, (torch.stack(ks), torch.stack(vs)), states
 
+    # ======================================================= xlstm stack
+    def _xlstm_stack(self, params, x, *, states=None, decode=False):
+        """Per superblock: its mLSTM blocks in order, then its sLSTM block.
+        Returns (x, (MLSTMState with leaves [n_super, m_per, B, ...],
+        SLSTMState with leaves [n_super, B, ...]))."""
+        cfg = self.cfg
+        mls, sls = [], []
+        for si in range(_n_layers(params)):
+            sp = layer_params(params["layers"], si)
+            ml = sp["mlstm_layers"]
+            msts = []
+            for j in range(_lead(ml)):
+                mp = layer_params(ml, j)
+                h = layers.apply_norm(mp["norm"], x, cfg.norm_kind, cfg.norm_eps)
+                if decode:
+                    st = xlstm.MLSTMState(*(a[si, j] for a in states[0]))
+                    y, st = xlstm.mlstm_block_step(mp["cell"], h, cfg, st)
+                else:
+                    y, st = self.attn_impl.ssm_scan("mlstm", mp["cell"], h, cfg,
+                                                    None)
+                x = x + y
+                msts.append(st)
+            h = layers.apply_norm(sp["slstm"]["norm"], x, cfg.norm_kind,
+                                  cfg.norm_eps)
+            if decode:
+                sst = xlstm.SLSTMState(*(a[si] for a in states[1]))
+                y, sst = xlstm.slstm_block_step(sp["slstm"]["cell"], h, cfg, sst)
+            else:
+                y, sst = self.attn_impl.ssm_scan("slstm", sp["slstm"]["cell"], h,
+                                                 cfg, None)
+            x = x + y
+            mls.append(xlstm.MLSTMState(*map(torch.stack, zip(*msts))))
+            sls.append(sst)
+        return x, (xlstm.MLSTMState(*map(torch.stack, zip(*mls))),
+                   xlstm.SLSTMState(*map(torch.stack, zip(*sls))))
+
     # ============================================================== public
+    def hidden(self, params, batch, positions=None) -> Tuple[torch.Tensor, Any]:
+        """Pre-unembed hidden states.  Returns (x [B,T,d], aux loss: the moe
+        load-balance loss, 0 otherwise)."""
+        x = self.embed_inputs(params, batch)
+        if positions is None:
+            positions = torch.arange(x.shape[1], device=x.device)
+        family = self.cfg.family
+        aux = 0.0
+        if family == "hybrid":
+            x, _, _ = self._hybrid_stack(params, x, positions)
+        elif family == "ssm":
+            x, _ = self._xlstm_stack(params, x)
+        else:
+            x, aux, _ = self._dense_stack(params, x, positions)
+        return x, torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+
+    def forward(self, params, batch, positions=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full forward.  Returns (logits [B,T,V], aux loss)."""
+        x, aux = self.hidden(params, batch, positions)
+        return self.unembed(params, x), aux
+
     def prefill(self, params, batch, positions=None, *,
                 last_logit_only: bool = False) -> Tuple[torch.Tensor, Cache]:
         """Prefill: logits (+ populated cache).  With last_logit_only=True
@@ -274,8 +352,11 @@ class Model(nn.Module):
         if self.cfg.family == "hybrid":
             x, (k, v), states = self._hybrid_stack(params, x, positions)
             cache = Cache(k=k, v=v, length=length, ssm=states)
+        elif self.cfg.family == "ssm":
+            x, states = self._xlstm_stack(params, x)
+            cache = Cache(length=length, ssm=states)
         else:
-            x, (k, v) = self._dense_stack(params, x, positions)
+            x, _, (k, v) = self._dense_stack(params, x, positions)
             cache = Cache(k=k, v=v, length=length)
         if last_logit_only:
             pos = torch.as_tensor(positions, device=x.device).expand(t)
@@ -289,7 +370,7 @@ class Model(nn.Module):
         packed token axis — (x [1, T, d], (k, v) packed per-layer KV
         [L, T, KVH, D])."""
         x = self.embed_inputs(params, batch)  # [1, T, d]
-        x, (k, v) = self._dense_stack(params, x, positions)  # [L, 1, T, ...]
+        x, _, (k, v) = self._dense_stack(params, x, positions)  # [L, 1, T, ...]
         return x, (k[:, 0], v[:, 0])
 
     def prefill_packed(
@@ -311,9 +392,9 @@ class Model(nn.Module):
 
     def decode(self, params, tokens, cache: Cache):
         """One decode step. tokens [B] or [B,1].  Returns (logits [B,V],
-        cache with length+1, per-layer new KV (k, v) each [L,B,1,KVH,D]);
-        cache.k/v are NOT updated here — the engine / KV pool owns
-        placement (LoongServe semantics)."""
+        cache with length+1, per-layer new KV (k, v) each [L,B,1,KVH,D], or
+        None for the ssm family); cache.k/v are NOT updated here — the
+        engine / KV pool owns placement (LoongServe semantics)."""
         if tokens.ndim == 1:
             tokens = tokens[:, None]
         x = layers.embed_lookup(params["embed"], tokens).to(self.dtype)
@@ -324,8 +405,13 @@ class Model(nn.Module):
                 v_caches=cache.v, cache_len=cl, decode=True,
             )
             new_cache = Cache(k=cache.k, v=cache.v, length=cl + 1, ssm=states)
+        elif self.cfg.family == "ssm":
+            x, states = self._xlstm_stack(params, x, states=cache.ssm,
+                                          decode=True)
+            kvs = None
+            new_cache = Cache(length=cl + 1, ssm=states)
         else:
-            x, kvs = self._dense_stack(
+            x, _, kvs = self._dense_stack(
                 params, x, None, k_caches=cache.k, v_caches=cache.v,
                 cache_len=cl, decode=True,
             )
@@ -337,21 +423,33 @@ class Model(nn.Module):
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device="cuda") -> Cache:
     """Preallocated (padded) cache for the dense-cache decode path: zero KV
-    per attention application and, for hybrids, zero recurrent state per
-    Mamba2 layer (leaves [n_super, per, B, ...])."""
+    per attention application (None for the attention-free ssm family) and
+    the zero recurrent state of a hybrid's Mamba2 layers (leaves [n_super,
+    per, B, ...]) or of an xLSTM stack (`Model._xlstm_stack`'s layout)."""
     from repro_torch.device import resolve_device
 
-    require_ported(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_attention_applications, batch, max_len, cfg.n_kv_heads,
-             cfg.head_dim)
-    k = torch.zeros(shape, dtype=torch_dtype(cfg.dtype), device=dev)
+    k = v = None
+    if cfg.n_attention_applications:
+        shape = (cfg.n_attention_applications, batch, max_len,
+                 cfg.n_kv_heads, cfg.head_dim)
+        k = torch.zeros(shape, dtype=torch_dtype(cfg.dtype), device=dev)
+        v = torch.zeros_like(k)
+
+    def stack(template, *lead):
+        return type(template)(*(a.expand(lead + a.shape).clone()
+                                for a in template))
+
     states = None
     if cfg.family == "hybrid":
-        lead = (cfg.n_layers // cfg.hybrid_mamba_per_block,
-                cfg.hybrid_mamba_per_block)
-        one = ssm.init_ssm_state(cfg, batch, device=dev)
-        states = ssm.SSMState(*(a.expand(lead + a.shape).clone() for a in one))
-    return Cache(k=k, v=torch.zeros_like(k),
+        states = stack(ssm.init_ssm_state(cfg, batch, device=dev),
+                       cfg.n_layers // cfg.hybrid_mamba_per_block,
+                       cfg.hybrid_mamba_per_block)
+    elif cfg.family == "ssm":
+        n_super, m_per = xlstm_layout(cfg)
+        states = (stack(xlstm.init_mlstm_state(cfg, batch, device=dev),
+                        n_super, m_per),
+                  stack(xlstm.init_slstm_state(cfg, batch, device=dev), n_super))
+    return Cache(k=k, v=v,
                  length=torch.zeros((batch,), dtype=torch.int32, device=dev),
                  ssm=states)

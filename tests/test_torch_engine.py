@@ -7,8 +7,8 @@ scale-down must move zero bytes, and the dispatch counters must show K1,
 K3 and K2 on the path and no serial prefill.
 
 Two guards: importing every `repro_torch` module loads neither `jax` nor
-the reference package, and a default-device entry point raises where there
-is no CUDA device.
+the reference package, and a default-device entry point that computes
+raises where there is no CUDA device.
 """
 import os
 import subprocess
@@ -95,8 +95,8 @@ def test_port_imports_no_jax_and_no_reference():
 def test_default_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = t_reduced(T_REGISTRY["lwm-7b"], n_layers=1)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        LoongServeEngine(cfg, 2, 64)
+    # a sim-mode engine holds no tensors and resolves no device
+    assert LoongServeEngine(cfg, 2, 64).device is None
     with pytest.raises(RuntimeError, match="CUDA"):
         build_model(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -114,8 +114,6 @@ def test_mesh_executor_is_not_ported():
     with pytest.raises(NotImplementedError, match="item 13"):
         LoongServeEngine(cfg, 2, 64, store_values=True, model=model,
                          params=params, executor="mesh", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        build_model(t_reduced(T_REGISTRY["xlstm-350m"]), device="cpu")
 
 
 def test_jax_oracle_agrees_with_port_oracle():

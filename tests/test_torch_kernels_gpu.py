@@ -15,7 +15,10 @@ rescale by alpha), and the mean error must stay below 1e-3.  K4 writes bf16
 outputs, so they may also sit one bf16 step apart (2^-7 |plain|).  m keeps
 1e-4 absolute, l 1e-4 relative, and empty rows must match.  The split-K
 decode cases (long rows, many rows) hold o / l and m to 1e-4: f32 sums over
-up to 64k keys in another order, merged across splits.
+up to 64k keys in another order, merged across splits; so does K5 at
+whisper width, and so do K3 and K2 at the serve CLI's width (f32 sums over
+up to ~1.8k keys, carried across a ring of up to 8 steps; the normalized
+ring output against plain K1 likewise).
 """
 import numpy as np
 import pytest
@@ -78,6 +81,20 @@ def _close_partial_tc(got, want, v):
         return o_ / torch.where(l_ == 0, torch.ones_like(l_), l_)[..., None]
 
     _close_tc(fin_o(o, l), fin_o(wo, wl), v)
+
+
+def _close_partial(got, want, atol=1e-4):
+    """Carried (o, m, l) of f32 operands summed over hundreds of keys: o / l
+    within `atol`, m `atol` absolute, l `atol` relative, the same empty
+    rows."""
+    (o, m, l), (wo, wm, wl) = got, want
+    _close(m, wm, atol=atol)
+    assert ((l - wl).abs() <= atol * wl.abs()).all()
+
+    def fin_o(o_, l_):
+        return o_ / torch.where(l_ == 0, torch.ones_like(l_), l_)[..., None]
+
+    _close(fin_o(o, l), fin_o(wo, wl), atol=atol)
 
 
 def _pool_case(seed, b, page, n_pages, kvh, d):
@@ -151,6 +168,54 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, kvh, window, softcap):
             *args, query_pos=args[4], window=window, softcap=softcap)
         for g_, w_ in zip(got, want):
             _close(g_, w_)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_kernels_at_serve_cli_width_on_card(cuda_device, n):
+    """K1, K3 and K2 at the shapes ``repro_torch.launch.serve --real`` gives
+    them: reduced lwm-7b (f32, H = KVH = 4, D = 32, page size 1), the CLI's
+    own sharegpt prompts as one packed batch, K3 through a full ring of `n`
+    shards, K2 over the prompts' decode contexts."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import poisson_workload
+
+    cfg = reduced(get_config("lwm-7b"))
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    lens = [r.input_len for r in poisson_workload("sharegpt", 8, 0.5, seed=0,
+                                                   max_len=256)]
+    t = -(-sum(lens) // 64) * 64
+    off = np.full(len(lens) + 2, sum(lens), np.int32)
+    off[0] = 0
+    off[1:len(lens) + 1] = np.cumsum(lens)
+    q, k, v = (x.to(cuda_device) for x in _t(*_qkv(n, t, h, kvh, d)))
+    k1 = tpfp.packed_flash_prefill_plain(q, k, v, off)
+    _close(tpfp.packed_flash_prefill(q, k, v, off), k1)
+    offs = [tstriped.shard_offsets(off, n, s) for s in range(n)]
+    sched = tstriped.ring_chunk_schedule(n)
+    carries = [None] * n
+    for step in range(n):
+        for r in range(n):
+            c = sched[step][r]
+            args = (q[r::n], k[c::n], v[c::n], offs[r], offs[c], carries[r])
+            kw = dict(q_shard=r, k_shard=c, n_shards=n)
+            got = tpfp.packed_flash_prefill_ring_chunk(*args, **kw)
+            _close_partial(got, tpfp.packed_flash_prefill_ring_chunk_plain(*args, **kw))
+            carries[r] = got
+    fin = [o / torch.where(l == 0, torch.ones_like(l), l)[..., None]
+           for o, _, l in carries]  # finalized: the normalized ring output
+    _close(tstriped.unstripe(torch.cat(fin), n, axis=0), k1, atol=1e-4)
+    ctx = np.asarray(lens, np.int32) + 15
+    slots = np.random.default_rng(n).permutation(int(ctx.sum()))
+    table = np.zeros((len(lens), int(ctx.max())), np.int32)
+    starts = np.concatenate([[0], np.cumsum(ctx)])
+    for i in range(len(lens)):
+        table[i, :ctx[i]] = slots[starts[i]:starts[i + 1]]
+    qd, kp, vp = _qkv(n + 1, int(ctx.sum()), h, kvh, d)
+    args = [x.to(cuda_device) for x in _t(qd[:len(lens), None], kp[:, None],
+                                          vp[:, None], table, ctx)]
+    _close_partial(tpfd.paged_flash_decode_partial(*args),
+                   tpfd.paged_flash_decode_partial_plain(*args))
 
 
 @pytest.mark.gpu
@@ -286,6 +351,38 @@ def test_striped_attention_long_keys_on_card(cuda_device, window):
     _close_tc(tsa.striped_flash_attention(q, k, v, qp, kp, **kw),
               tsa.striped_flash_attention_plain(q, k, v, qp, kp, **kw), v,
               bf16_out=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_kernels_at_whisper_width_on_card(cuda_device, dtype):
+    """K4 and K5 at the shapes whisper-tiny's decoder self-attention gives
+    them (H = KVH = 6, D = 64, q_per_kv 1): K4 over a batch of 4 causal
+    prompts of 448 and 1500 tokens, K5 over a batch of 4 histories up to 480
+    keys, one of them empty."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(16)
+    h, d = 6, 64
+
+    def rand(*shape, dtype=dt):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+            cuda_device, dtype)
+
+    for s in (448, 1500):
+        q, k, v = rand(4, s, h, d), rand(4, s, h, d), rand(4, s, h, d)
+        pos = torch.arange(s, dtype=torch.int32, device=cuda_device)
+        got = tsa.striped_flash_attention(q, k, v, pos, pos, causal=True)
+        want = tsa.striped_flash_attention_plain(q, k, v, pos, pos, causal=True)
+        if dt == torch.float32:
+            _close(got, want)
+        else:
+            _close_tc(got, want, v, bf16_out=True)
+    q = rand(4, 1, h, d)
+    k, v = rand(4, 480, h, d), rand(4, 480, h, d)
+    lens = torch.tensor([0, 200, 448, 479], dtype=torch.int32, device=cuda_device)
+    got = tfd.flash_decode_partial(q, k, v, lens)
+    _close_partial(got, tfd.flash_decode_partial_plain(q, k, v, lens))
+    assert torch.isinf(got.m[0]).all() and (got.l[0] == 0).all()
 
 
 # ------------------------------------------- the split-K decode core (K2, K5)
