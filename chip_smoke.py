@@ -86,7 +86,18 @@ Phases (each one fails the run with a non-zero exit; none is caught):
      ...])`` (reduced lwm-7b, f32, on the card) finishes every request with
      zero migration and tokens equal to the serial oracle on the engine the
      CLI built, then every ``--system`` in sim mode; its K1-K3 launches are
-     listed under ``launches_by_path`` and not added to the rows' totals.
+     listed under ``launches_by_path`` and not added to the rows' totals;
+  15. the mesh executor on NCCL at world size 1 (one card: NCCL takes one
+     rank per device): open the group, hold `paged_decode_spmd` (overlap on
+     and off) at phase 4's decode batch and lwm-7b width, the batch-sharded
+     `paged_decode_iteration_spmd` (full width, 2 layers, f32: ids equal the
+     plain decode's argmax, routed KV within 1e-4) and
+     `ring_packed_prefill_spmd` at n == 1 (K1, bf16) against their plain
+     versions; print the collectives' dispatches and bytes; then serve
+     lwm-7b (full width, 16 of 32 layers, bf16, phase 4's requests) and the
+     f32 2-layer parity run through ``executor="mesh"`` (one data
+     coordinate: every instance aliases and the executor replays in
+     process) with tokens equal to the serial oracle; K1-K3 launched.
 
 Phases 2-3 also hold K4 and K5 at whisper-tiny's width (H = KVH = 6, D =
 64, q_per_kv 1; K4: B = 4, causal, S 448 and 1500, bf16 and f32; K5: B =
@@ -1078,7 +1089,7 @@ def _reset_counts():
 
 
 def _serve(cfg, n_inst, capacity, lens, new_tokens, seed, check_oracle,
-           serial=False):
+           serial=False, **engine_kw):
     """One real-mode engine run, built as the serve CLI builds it; returns
     (metrics, kernel launches, dispatch counts, wall seconds, {stage:
     seconds} spans).  ``serial`` families (moe, hybrid, ssm) take the
@@ -1096,7 +1107,7 @@ def _serve(cfg, n_inst, capacity, lens, new_tokens, seed, check_oracle,
     model = build_model(cfg)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
     eng = build_engine("loongserve", cfg, n_inst, capacity, store_values=True,
-                       model=model, params=params)
+                       model=model, params=params, **engine_kw)
     rng = np.random.default_rng(seed)
     reqs = [Request(input_len=n, max_new_tokens=new_tokens, arrival=0.0,
                     prompt=rng.integers(0, cfg.vocab_size, n).tolist())
@@ -1927,6 +1938,187 @@ def phase_cli(card, rec):
               f"norm_e2e_mean {data['norm_e2e_mean']:.6f} s/token")
 
 
+def _paged_layout(rng, lens, page, n_layers, kvh, d, device):
+    """One instance's paged pool holding ``lens`` cached tokens per request
+    (dense local order, exclusive pages, page 0 left empty): (k_pages,
+    v_pages [L, n_pages, page, KVH, D] f32, table [B, max_pages] int32,
+    lengths [B] int32)."""
+    import torch
+
+    need = [-(-n // page) for n in lens]
+    n_pages = sum(need) + 1
+    table = np.zeros((len(lens), max(need)), np.int32)
+    start = 1
+    for b, k in enumerate(need):
+        table[b, :k] = np.arange(start, start + k)
+        start += k
+    shape = (n_layers, n_pages, page, kvh, d)
+    kp = torch.randn(shape, device=device)
+    vp = torch.randn(shape, device=device)
+    return (kp, vp, torch.as_tensor(table, device=device),
+            torch.as_tensor(np.asarray(lens, np.int32), device=device))
+
+
+def phase_mesh(card, rec, lens4):
+    """Phase 15: the mesh executor on NCCL.  The card's machine holds one
+    card and NCCL takes one rank per device, so the world here is one rank:
+    the SPMD programs run their per-rank kernels and their collectives on a
+    one-rank group, and the serving engine's mesh aliases every instance
+    onto the one data coordinate (the executor replays in process, as the
+    reference's does).  Multi-rank runs are four-card work."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import init_params
+    from repro_torch.core import esp
+    from repro_torch.core.paged_decode import PagedDecodeAttnImpl
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.paged_flash_prefill import packed_flash_prefill_plain
+    from repro_torch.launch.mesh import init_process_group, make_test_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import Cache, DefaultAttnImpl
+
+    t0 = time.perf_counter()
+    backend = init_process_group("cuda")
+    mesh = make_test_mesh(1, 1, device="cuda")
+    print(f"[mesh] process group: backend {dist.get_backend()}, world size "
+          f"{dist.get_world_size()}, mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+          f"on {card}; init {time.perf_counter() - t0:.2f} s")
+    assert backend == "nccl" and dist.get_world_size() == 1
+    cfg = get_config("lwm-7b")
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    torch.manual_seed(15)
+    rng = np.random.default_rng(15)
+    log = ["[mesh] SPMD programs at one rank vs their plain versions "
+           f"(lwm-7b width H {h} / KVH {kvh}, D {d}):"]
+    _reset_counts()  # the direct calls' collectives, from here
+
+    # paged_decode_spmd at phase 4's decode batch (its 8 prompts as cached
+    # lengths, page size 16, f32 pool as the engine's mirror)
+    b = len(lens4)
+    kp, vp, bt, ln = _paged_layout(rng, lens4, 16, 1, kvh, d, "cuda")
+    q = torch.randn(b, 1, h, d, device="cuda")
+    kn = torch.randn(b, 1, kvh, d, device="cuda")
+    vn = torch.randn(b, 1, kvh, d, device="cuda")
+    qpos = ln.clone()
+    want = ref.paged_decode_merge_ref(q, kn, vn, [(kp[0], vp[0], bt, ln, None)],
+                                      query_pos=qpos)
+    for overlap in (True, False):
+        got = esp.paged_decode_spmd(mesh, q, kn, vn, qpos, kp[0], vp[0], bt, ln,
+                                    overlap=overlap)
+        _check(f"paged_decode_spmd B {b}, contexts {min(lens4)}-{max(lens4)}, "
+               f"overlap {overlap}", got, want, log)
+    spmd_ms = _time_ms(lambda: esp.paged_decode_spmd(
+        mesh, q, kn, vn, qpos, kp[0], vp[0], bt, ln))
+    impl = PagedDecodeAttnImpl()
+
+    def loop_merge():  # the in-process per-shard merge of the same layer
+        from repro_torch.core.paged_decode import PagedShard
+
+        impl.begin_step([PagedShard(kp, vp, bt, ln)])  # one layer plane
+        try:
+            return impl.decode_attn(q, None, None, kn, vn, qpos, window=None,
+                                    softcap=None)
+        finally:
+            impl.end_step()
+
+    loop_ms = _time_ms(loop_merge)
+    log.append(f"  paged_decode_spmd {spmd_ms:.4f} ms per layer (K2, pmax, psum "
+               f"on a one-rank NCCL group, new-token merge) vs the in-process "
+               f"per-shard merge {loop_ms:.4f} ms (eager, events)")
+
+    # ring_packed_prefill_spmd at n == 1 is K1: phase 4's first four prompts
+    # packed, bf16 (the tensor-core route)
+    lens_p = lens4[:4]
+    t = -(-sum(lens_p) // 128) * 128
+    off = _offsets(lens_p, len(lens_p))
+    qq = torch.randn(t, h, d, device="cuda", dtype=torch.bfloat16)
+    kk = torch.randn(t, kvh, d, device="cuda", dtype=torch.bfloat16)
+    vv = torch.randn(t, kvh, d, device="cuda", dtype=torch.bfloat16)
+    got = esp.ring_packed_prefill_spmd(mesh, qq, kk, vv, off)
+    _check(f"ring_packed_prefill_spmd n 1 (K1), {len(lens_p)} prompts / {t} "
+           "tokens, bf16", got, packed_flash_prefill_plain(qq, kk, vv, off), log,
+           v=vv)
+    del qq, kk, vv, got
+
+    # paged_decode_iteration_spmd: full width, 2 layers, f32, phase 4's batch
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    model = build_model(cfg2, device="cuda")
+    params = init_params(cfg2, gen, "cuda")
+    kp, vp, bt, ln = _paged_layout(rng, lens4, 16, 2, kvh, d, "cuda")
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, b), device="cuda")
+    route = torch.arange(b, device="cuda")[None]
+    model.attn_impl = PagedDecodeAttnImpl()
+    ids, k_rt, v_rt = esp.paged_decode_iteration_spmd(
+        mesh, model, model.attn_impl, params, toks, ln, kp, vp, bt, ln, None,
+        route)
+
+    class PlainPaged(DefaultAttnImpl):  # plain K2 + merge over the same pool
+        li = 0
+
+        def decode_attn(self, q_, kc, vc, k_new, v_new, cache_len, *, window,
+                        softcap):
+            li, self.li = self.li, self.li + 1
+            return ref.paged_decode_merge_ref(
+                q_, k_new, v_new, [(kp[li], vp[li], bt, ln, None)],
+                query_pos=ln).to(q_.dtype)
+
+    model.attn_impl = PlainPaged()
+    logits, _, kvs = model.decode(params, toks, Cache(length=ln))
+    want_ids = torch.argmax(logits, dim=-1).to(torch.int32)
+    assert torch.equal(ids, want_ids), (ids, want_ids)
+    _check("paged_decode_iteration_spmd 2 layers f32: routed new K", k_rt, kvs[0], log)
+    _check("paged_decode_iteration_spmd 2 layers f32: routed new V", v_rt, kvs[1], log)
+    log.append(f"  paged_decode_iteration_spmd: sampled ids {ids.tolist()} equal "
+               "the plain decode's argmax")
+    del model, params, kp, vp
+    direct = dict(ops.dispatch_counts)
+    direct_bytes = dict(ops.comm_bytes)
+    log.append(f"  collectives of these calls: dispatches "
+               f"{ {k: v for k, v in direct.items() if k in COLLECTIVES} }, "
+               f"bytes {direct_bytes}")
+    print("\n".join(log))
+    for key in ("pmax", "psum", "all_gather"):
+        assert direct.get(key, 0) > 0, (key, direct)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the engine on the mesh executor: full width, 16 of 32 layers, bf16,
+    # phase 4's requests; then the f32 token parity of phase 5's
+    cfg16 = dataclasses.replace(cfg, n_layers=16)
+    m, counts, dispatch, wall, spans = _serve(cfg16, 4, 4096, lens4, 16, 0, False,
+                                              executor="mesh")
+    _report("lwm-7b 16/32 layers bf16, executor=\"mesh\"", cfg16, m, counts,
+            dispatch, wall, spans, lens4, 16)
+    print(f"[mesh] serving: collective dispatches "
+          f"{ {k: v for k, v in dispatch.items() if k in COLLECTIVES} } (the "
+          "one-rank mesh aliases every instance: the executor replays in process)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    lens2 = [int(x) for x in np.random.default_rng(1).integers(128, 1025, 6)]
+    _, counts2, _, wall2, _ = _serve(cfg2, 4, 2048, lens2, 8, 1, True,
+                                     executor="mesh")
+    print(f"[mesh] parity: lwm-7b width, 2 layers, f32, executor=\"mesh\": "
+          f"{len(lens2)} requests token-identical to the serial oracle; "
+          f"launches {counts2}; wall {wall2:.3f} s")
+    for key, name in (("K1", "packed_flash_prefill"),
+                      ("K3", "packed_flash_prefill_ring_chunk"),
+                      ("K2", "paged_flash_decode_partial")):
+        n = counts.get(name, 0) + counts2.get(name, 0)
+        assert n > 0, (name, counts, counts2)
+        rec[key]["launches_by_path"]["mesh executor (phase 15)"] = n
+        rec[key]["launches"] += n
+    dist.destroy_process_group()
+
+
+COLLECTIVES = ("ring_ppermute", "psum", "pmax", "psum_scatter", "all_gather",
+               "ring_out_gather", "kv_gather", "broadcast", "result_broadcast",
+               "decode_partial_home", "host_sync_broadcast")
+
+
 def main() -> int:
     try:
         import torch
@@ -2057,7 +2249,8 @@ def main() -> int:
                                         rec[key]["launches"]}
     for n, phase in ((12, lambda: phase_xlstm_serve(card)),
                      (13, lambda: phase_ssm_audio_parity(card, rec)),
-                     (14, lambda: phase_cli(card, rec))):
+                     (14, lambda: phase_cli(card, rec)),
+                     (15, lambda: phase_mesh(card, rec, lens))):
         t_ph = time.perf_counter()
         phase()
         print(f"[phase {n}] took {time.perf_counter() - t_ph:.1f} s")

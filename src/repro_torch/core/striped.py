@@ -33,30 +33,57 @@ def unstripe_indices(seq_len: int, n: int) -> np.ndarray:
     return inv
 
 
+def stripe(x: torch.Tensor, n: int, axis: int = 1) -> torch.Tensor:
+    """Permute `axis` of x into striped layout."""
+    idx = torch.as_tensor(stripe_indices(x.shape[axis], n), device=x.device)
+    return x.index_select(axis, idx)
+
+
 def unstripe(x: torch.Tensor, n: int, axis: int = 1) -> torch.Tensor:
     idx = torch.as_tensor(unstripe_indices(x.shape[axis], n), device=x.device)
     return x.index_select(axis, idx)
 
 
-def ring_pairs(n: int) -> List[Tuple[int, int]]:
-    """(src, dst) pairs of an n-rank ring."""
-    return [(i, (i + 1) % n) for i in range(n)]
+def striped_positions(seq_len: int, n: int, offset: int = 0) -> torch.Tensor:
+    """Global positions of tokens in the striped layout ([S] int32, CPU)."""
+    return torch.as_tensor(stripe_indices(seq_len, n) + offset,
+                           dtype=torch.int32)
 
 
-def ring_chunk_schedule(n: int) -> List[List[int]]:
+def ring_pairs(n: int, group: int | None = None) -> List[Tuple[int, int]]:
+    """(src, dst) pairs of a ring; optionally rings within disjoint
+    subgroups of size `group` (elastic ESP groups sharing one mesh axis)."""
+    g = group or n
+    assert n % g == 0
+    return [(base + i, base + (i + 1) % g)
+            for base in range(0, n, g) for i in range(g)]
+
+
+def ring_chunk_schedule(n: int, group: int | None = None) -> List[List[int]]:
     """``sched[step][rank]`` — which rank's original KV chunk each rank holds
     at every ring step, by simulating the `ring_pairs` rotation (every rank
     starts with its own chunk; each step forwards it to the neighbour)."""
-    pairs = ring_pairs(n)
+    g = group or n
+    pairs = ring_pairs(n, g)
     held = list(range(n))
     sched = [list(held)]
-    for _ in range(n - 1):
+    for _ in range(g - 1):
         nxt = list(held)
         for src, dst in pairs:
             nxt[dst] = held[src]
         held = nxt
         sched.append(list(held))
     return sched
+
+
+def chunk_provenance(n: int, step: int, group: int | None = None) -> List[int]:
+    """Closed form of ``ring_chunk_schedule(n, group)[step]``: after ``step``
+    forwards of the `ring_pairs` rotation, rank ``r`` holds the chunk that
+    originated at rank ``base + (r - step) mod g`` of its subgroup.  The SPMD
+    ring (`esp.ring_packed_prefill_spmd`) computes this with its own rank as
+    a Python int; the tests pin it to the simulated schedule."""
+    g = group or n
+    return [(r // g) * g + (r % g - step) % g for r in range(n)]
 
 
 def shard_offsets(seq_offsets, n: int, shard: int) -> np.ndarray:

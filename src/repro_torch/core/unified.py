@@ -24,8 +24,13 @@ request's prefill frontier, only that the pool holds every position below
 the chunk's start: the salvage recovery chain replays a lost span as
 ordinary chunks through this same iteration.
 
-The SPMD form (the token axis striped over a mesh, prefix merge by
-collectives) is ROADMAP queue 1 item 13.
+Under the mesh executor the same iteration runs across processes: a
+shard whose pool mirror lives in another process carries that process's
+rank (``src``) and its prefix partial is computed there and broadcast
+(`core.paged_decode.shard_partial`); and the SPMD form
+(`core.esp.unified_iteration_spmd`) stripes the token axis over the group,
+the prefix plane merged by collectives and the chunk plane folded by the
+ring (`UnifiedAttnImpl._attn_axis`).
 """
 from __future__ import annotations
 
@@ -50,6 +55,9 @@ class UnifiedShard(NamedTuple):
     page_pos: Optional[torch.Tensor]  # [n_pages, P] (window masking only)
     table: torch.Tensor  # [T, max_pages] int32
     lengths: torch.Tensor  # [T] int32
+    # global rank holding the mirror when it lives in another process
+    # (the tensors are None elsewhere); None = a local shard
+    src: Optional[int] = None
 
 
 def unified_chunk_attention(q, k, v, seq_offsets, positions, prefix_shards, *,
@@ -61,15 +69,25 @@ def unified_chunk_attention(q, k, v, seq_offsets, positions, prefix_shards, *,
     then decode rows); ``seq_offsets`` [S+1] its segment boundaries;
     ``positions`` [T] global positions; ``prefix_shards``: iterable of
     per-layer pool views ``(k_pages [n_pages,P,KVH,D], v_pages, table
-    [T,max_pages], lengths [T], page_pos)``.  One K2 launch per shard, the
-    partials LSE-merged, then one K3 launch folding the chunk into them.
-    Returns the normalized [T, H, D] f32 output."""
+    [T,max_pages], lengths [T], page_pos[, src])``.  One K2 launch per shard
+    (on the rank ``src`` for a shard held by another process), the partials
+    LSE-merged, then one K3 launch folding the chunk into them.  Returns the
+    normalized [T, H, D] f32 output."""
+    from repro_torch.core.paged_decode import shard_partial
+
     carry = None
     qt = q[:, None]  # [T, 1, H, D]: token axis as the partial's batch axis
-    for kp, vp, tbl, lens, pos in prefix_shards:
-        p = ops.paged_decode_partial(qt, kp, vp, tbl, lens, pos,
-                                     query_pos=positions, window=window,
-                                     softcap=softcap)
+    for view in prefix_shards:
+        kp, vp, tbl, lens, pos = view[:5]
+        src = view[5] if len(view) > 5 else None
+        p = shard_partial(
+            src, tuple(qt.shape),
+            lambda kp=kp, vp=vp, tbl=tbl, lens=lens, pos=pos:
+                ops.paged_decode_partial(qt, kp, vp, tbl, lens, pos,
+                                         query_pos=positions, window=window,
+                                         softcap=softcap),
+            q.device,
+        )
         carry = p if carry is None else A.merge_partial(carry, p)
     if carry is not None:
         carry = (carry.o[:, 0], carry.m[:, 0], carry.l[:, 0])
@@ -87,9 +105,18 @@ class UnifiedAttnImpl(DefaultAttnImpl):
     Drives `model.prefill_packed`: the layer loop calls `prefill_attn` once
     per layer and the impl keeps a layer cursor into the per-layer pool
     planes (the begin/end contract of `core.paged_decode.PagedDecodeAttnImpl`).
-    ``shards`` is a list of `UnifiedShard`, one per instance holding prefix
-    KV; each layer merges one prefix partial per shard into the chunk fold.
     Outside a `begin_step`/`end_step` window it is the default attention.
+
+    Two modes:
+      * loop: ``shards`` is a list of `UnifiedShard`, one per instance
+        holding prefix KV; each layer merges one prefix partial per shard
+        into the chunk fold;
+      * axis (``axis_name=``, inside `esp.unified_iteration_spmd`): the
+        token axis is STRIPED over ``n_ranks`` processes; each layer
+        all-gathers the q stripes, computes this rank's prefix partial over
+        its own pool plane, LSE-merges with pmax + psum_scatter back to the
+        stripes, and folds the chunk with the striped KV ring of the SPMD
+        prefill.
     """
 
     def __init__(self):
@@ -97,18 +124,26 @@ class UnifiedAttnImpl(DefaultAttnImpl):
         self._shards: list = []
 
     def begin_step(self, seq_offsets, positions, *,
-                   shards: Optional[Sequence[UnifiedShard]] = None) -> None:
+                   shards: Optional[Sequence[UnifiedShard]] = None,
+                   axis_name=None, n_ranks: int = 1,
+                   double_buffer: bool = True) -> None:
         """Arm one step.  ``positions`` is the FULL packed-axis position
-        vector ([T] on the model's device): the prefix partial's per-token
-        query positions."""
+        vector ([T] on the model's device; striped order in axis mode): the
+        prefix partial's per-token query positions.  In axis mode
+        ``axis_name`` is the axis' process group, ``shards`` holds ONE
+        `UnifiedShard` with this rank's pool plane and per-token operands
+        over the full striped axis, and ``seq_offsets`` are the GLOBAL
+        packed offsets (numpy)."""
         assert not self._armed, "unified step already armed"
         self._offsets = seq_offsets
         self._positions = positions
         self._shards = list(shards) if shards else []
+        self._axis = axis_name
+        self._n_ranks = n_ranks
+        self._double_buffer = double_buffer
         self._li = 0
-        self._n_layers = (
-            int(self._shards[0].k_pages.shape[0]) if self._shards else None
-        )
+        first = self._shards[0].k_pages if self._shards else None
+        self._n_layers = int(first.shape[0]) if first is not None else None
         self._armed = True
 
     def end_step(self) -> None:
@@ -128,8 +163,13 @@ class UnifiedAttnImpl(DefaultAttnImpl):
         assert causal and q.shape[0] == 1, (causal, q.shape)
         li = self._li
         self._li += 1
+        if self._axis is not None:
+            return self._attn_axis(li, q, k, v, window, softcap)[None].to(
+                q.dtype)
         shards_li = [
-            (s.k_pages[li], s.v_pages[li], s.table, s.lengths, s.page_pos)
+            (s.k_pages[li] if s.k_pages is not None else None,
+             s.v_pages[li] if s.v_pages is not None else None,
+             s.table, s.lengths, s.page_pos, s.src)
             for s in self._shards
         ]
         out = unified_chunk_attention(
@@ -137,3 +177,39 @@ class UnifiedAttnImpl(DefaultAttnImpl):
             window=window, softcap=softcap,
         )
         return out[None].to(q.dtype)
+
+    def _attn_axis(self, li, q, k, v, window, softcap):
+        """One layer boundary of the striped SPMD iteration: decode-style
+        prefix merge + prefill-style ring fold, on this rank's token
+        stripe."""
+        import torch.distributed as dist
+
+        from repro_torch.core import esp
+
+        group, n = self._axis, self._n_ranks
+        (sh,) = self._shards
+        tl = q.shape[1]
+        r = dist.get_rank(group)
+        # prefix plane: all_gather(q) -> K2 over this rank's pool plane ->
+        # LSE psum_scatter back to the stripes (the batch-sharded decode
+        # boundary, with T for B)
+        qg = ops.all_gather(q[0][:, None], group, axis=0)  # [T, 1, H, D]
+        part = ops.paged_decode_partial(
+            qg, sh.k_pages[li], sh.v_pages[li], sh.table, sh.lengths,
+            sh.page_pos, query_pos=self._positions, window=window,
+            softcap=softcap,
+        )
+        m_g = ops.pmax(part.m, group)
+        w = esp._lse_weights(part, m_g)
+        o_s, l_s = ops.psum_scatter((part.o * w[..., None], part.l * w),
+                                    group, scatter_dimension=0)
+        m_s = m_g[r * tl:(r + 1) * tl]
+        carry = (o_s[:, 0], m_s[:, 0], l_s[:, 0])
+        # chunk plane: the striped KV ring of this iteration's packed axis,
+        # folded into the prefix carry
+        carry = esp._ring_fold(
+            group, n, r, q[0], k[0], v[0], self._offsets, carry,
+            window=window, softcap=softcap,
+            double_buffer=self._double_buffer,
+        )
+        return esp._finalize_carry(carry)

@@ -26,6 +26,12 @@ launches and KV writes, on the engine's device:
     prefixes through per-token block tables and one K3 launch folds the
     chunk into them (`core.unified`).
 
+`MeshExecutor` runs the same bodies across the processes of a
+`torch.distributed` world (NCCL on CUDA, gloo on the CPU): the ring between
+the ranks of a DoP>1 group, the multi-master decode merge and the unified
+step by collectives (K1-K3 per rank), every rank running the engine in
+lockstep.
+
 PyTorch runs eagerly, so the reference's jitted-program LRU has no
 counterpart; the padding buckets stay so that padded shapes and striping
 (``T % dop == 0``) match the reference exactly.
@@ -166,6 +172,14 @@ class LocalExecutor:
         sampled from the packed logits, and the per-layer KV output is
         scattered straight into each instance's pool mirror at the slots the
         scheduler reserved (`pool.fill_packed` write-through)."""
+        lens, packed = self._pack_prefill(batch)
+        logits, k_packed, v_packed = self._prefill_step(*packed)
+        self._emit_prefill(batch, lens, self._agree(logits).cpu().numpy(),
+                           k_packed, v_packed)
+
+    def _pack_prefill(self, batch):
+        """Host-side packing of a prefill batch: (prompt lengths, (dop,
+        tokens [tb], positions [tb], offsets [bb+1], last_idx [bb]))."""
         eng = self.eng
         reqs = batch.requests
         lens = [len(r.prompt) for r in reqs]
@@ -188,10 +202,21 @@ class LocalExecutor:
             c += n
             offsets[b + 1] = c
             last_idx[b] = c - 1
+        return lens, (dop, tokens, positions, offsets, last_idx)
+
+    def _arm_packed_step(self, impl, offsets, dop: int) -> None:
+        """Arm the packed attention impl for one step (the mesh executor
+        overrides this to hand the impl its ring's sub-mesh)."""
+        impl.begin_step(offsets, dop=dop)
+
+    def _prefill_step(self, dop, tokens, positions, offsets, last_idx):
+        """The packed model step: (logits [bb, V], k_packed, v_packed
+        [L, tb, KVH, D])."""
+        eng = self.eng
         impl = self._packed_prefill_impl
         prev_impl = eng.model.attn_impl
         eng.model.attn_impl = impl
-        impl.begin_step(offsets, dop=dop)
+        self._arm_packed_step(impl, offsets, dop)
         try:
             logits, (k_packed, v_packed) = eng.model.prefill_packed(
                 eng.params, {"tokens": self._to_dev(tokens)[None]},
@@ -200,7 +225,23 @@ class LocalExecutor:
         finally:
             impl.end_step()
             eng.model.attn_impl = prev_impl
-        logits = logits.cpu().numpy()
+        return logits, k_packed, v_packed
+
+    def _agree(self, logits):
+        """Host-sampled logits as every process of the executor sees them
+        (one process here; the mesh executor broadcasts)."""
+        return logits
+
+    def _emit_prefill(self, batch, lens, logits, k_packed, v_packed) -> None:
+        """Prefill epilogue: first tokens from the packed logits (numpy
+        [>=B, V], NaN-guarded), then the direct-to-pool paged KV writes:
+        per instance, the packed columns it retains (placement from
+        batch.placement — ESP scale-down stays zero-migration) written
+        through into its mirror at the reserved block-table slots.  A pool
+        whose mirror lives in another process only marks the slots
+        (``k_packed`` may then be None)."""
+        eng = self.eng
+        reqs = batch.requests
         for b, r in enumerate(reqs):
             row = self._guard_logits(r, logits[b])
             if row is None:
@@ -208,10 +249,6 @@ class LocalExecutor:
             r.output_tokens.append(eng._sample_token(row))
         if not eng.pool.pools[0].store_values:
             return
-        # direct-to-pool paged KV writes: per instance, gather the packed
-        # columns this instance retains (placement from batch.placement —
-        # ESP scale-down stays zero-migration) and write-through into its
-        # mirror at the reserved block-table slots
         starts = np.concatenate([[0], np.cumsum(lens)])
         per_inst: Dict[int, Tuple[List[np.ndarray], List[np.ndarray]]] = {}
         for b, r in enumerate(reqs):
@@ -222,9 +259,18 @@ class LocalExecutor:
                 cols, slots = per_inst.setdefault(inst, ([], []))
                 cols.append(starts[b] + p)
                 slots.append(eng.pool.pools[inst].slots_for(r.rid, p))
+        self._fill_columns(per_inst, k_packed, v_packed)
+
+    def _fill_columns(self, per_inst, k_packed, v_packed) -> None:
+        """Write-through of packed KV columns: {inst: (column lists, slot
+        lists)} into each pool at its slots."""
         for inst, (cols, slots) in per_inst.items():
+            pool = self.eng.pool.pools[inst]
+            if not pool.mirror_here:
+                pool.fill_packed(np.concatenate(slots), None, None)
+                continue
             cidx = self._to_dev(np.concatenate(cols))
-            eng.pool.pools[inst].fill_packed(
+            pool.fill_packed(
                 np.concatenate(slots),
                 k_packed.index_select(1, cidx),
                 v_packed.index_select(1, cidx),
@@ -267,7 +313,6 @@ class LocalExecutor:
         """Gather-free batched decode: ONE model step for the whole group;
         per layer, one paged-kernel launch per instance over the pool mirror
         in place (block tables), partials LSE-merged multi-master style."""
-        from repro_torch.core.paged_decode import PagedShard
         from repro_torch.models.transformer import Cache
 
         eng = self.eng
@@ -281,14 +326,7 @@ class LocalExecutor:
             if not lengths.any():
                 continue
             covered += lengths
-            # incrementally-synced mirror: steady-state decode uploads one
-            # slot per request; packed-prefill slots upload 0
-            kdev, vdev, posdev = pool.device_paged_kv()
-            shards.append(PagedShard(
-                k_pages=kdev, v_pages=vdev, table=pool._dev_put(table),
-                lengths=pool._dev_put(lengths),
-                pos=(posdev if eng.cfg.sliding_window else None),
-            ))
+            shards.append(self._paged_shard(pool, table, lengths))
         # cache holds tokens 0..seq_len-2; the processed token's KV is
         # produced by this step and appended at the master afterwards
         assert (covered == n_cached).all(), (covered, n_cached)
@@ -303,7 +341,20 @@ class LocalExecutor:
         finally:
             self._paged_impl.end_step()
             eng.model.attn_impl = prev_impl
-        self._emit_decoded(g, logits, kvs)
+        self._emit_decoded(g, self._agree(logits), kvs)
+
+    def _paged_shard(self, pool, table, lengths):
+        """One pool's `PagedShard` for a decode step: the incrementally
+        synced mirror (steady-state decode uploads one slot per request;
+        packed-prefill slots upload 0) and the batch's block table."""
+        from repro_torch.core.paged_decode import PagedShard
+
+        kdev, vdev, posdev = pool.device_paged_kv()
+        return PagedShard(
+            k_pages=kdev, v_pages=vdev, table=pool._dev_put(table),
+            lengths=pool._dev_put(lengths),
+            pos=(posdev if self.eng.cfg.sliding_window else None),
+        )
 
     def _emit_decoded(self, g, logits, kvs) -> None:
         """Shared batched-decode epilogue: sample one token per request and
@@ -403,12 +454,13 @@ class LocalExecutor:
                 segs.append(_USeg(r, True, r.seq_len - 1, 1, r.seq_len - 1, True))
         return segs
 
-    def _unified_pack(self, segs):
+    def _unified_pack(self, segs, tb=None):
         """Host-side packing: (tokens [tb], positions [tb], offsets [bb+1],
         last_idx [bb]) — exactly `prefill_packed`'s layout, with decode rows
-        as length-1 segments carrying their request's last sampled token."""
+        as length-1 segments carrying their request's last sampled token.
+        ``tb`` defaults to the token bucket of the total."""
         total = sum(s.ln for s in segs)
-        tb = self._token_bucket(total)
+        tb = self._token_bucket(total) if tb is None else tb
         bb = self._bucket(len(segs), lo=1)
         tokens = np.zeros(tb, np.int64)
         positions = np.zeros(tb, np.int64)
@@ -445,8 +497,6 @@ class LocalExecutor:
         (shards, covered); covered[b] sums segment b's prefix length over
         every pool and must equal its limit — no filled slot unreachable,
         none double-counted."""
-        from repro_torch.core.unified import UnifiedShard
-
         eng = self.eng
         rids = [s.r.rid for s in segs]
         limits = np.array([s.limit for s in segs], np.int64)
@@ -474,15 +524,20 @@ class LocalExecutor:
             n = int(seg_lens.sum())
             tbl_t[:n, :table.shape[1]] = np.repeat(table, seg_lens, axis=0)
             len_t[:n] = np.repeat(lengths, seg_lens)
-            kdev, vdev, posdev = pool.device_paged_kv()
-            shards.append(UnifiedShard(
-                k_pages=kdev,
-                v_pages=vdev,
-                page_pos=(posdev if eng.cfg.sliding_window else None),
-                table=pool._dev_put(tbl_t),
-                lengths=pool._dev_put(len_t),
-            ))
+            shards.append(self._unified_shard(pool, tbl_t, len_t))
         return shards, covered
+
+    def _unified_shard(self, pool, tbl_t, len_t):
+        """One pool's `UnifiedShard`: its mirror and the per-token prefix
+        table / lengths."""
+        from repro_torch.core.unified import UnifiedShard
+
+        kdev, vdev, posdev = pool.device_paged_kv()
+        return UnifiedShard(
+            k_pages=kdev, v_pages=vdev,
+            page_pos=(posdev if self.eng.cfg.sliding_window else None),
+            table=pool._dev_put(tbl_t), lengths=pool._dev_put(len_t),
+        )
 
     def unified(self, work) -> None:
         """ONE packed model step for a whole unified iteration: a bounded
@@ -492,8 +547,10 @@ class LocalExecutor:
         (`core.unified`).  First/next tokens are sampled from the packed
         logits, prefill chunk KV write-throughs at the reserved slots, and
         decode KV is stashed exactly like `decode_paged`."""
+        self._unified_local(work, self._unified_segments(work))
+
+    def _unified_local(self, work, segs) -> None:
         eng = self.eng
-        segs = self._unified_segments(work)
         tokens, positions, offsets, last_idx = self._unified_pack(segs)
         shards, covered = self._unified_shards(segs, len(tokens))
         limits = np.array([s.limit for s in segs], np.int64)
@@ -512,23 +569,33 @@ class LocalExecutor:
         finally:
             impl.end_step()
             eng.model.attn_impl = prev_impl
-        self._unified_emit(work, segs, logits.cpu().numpy(), k_packed, v_packed)
+        self._unified_emit(work, segs, self._agree(logits).cpu().numpy(),
+                           None, k_packed, v_packed, None)
 
-    def _unified_emit(self, work, segs, logits, k_packed, v_packed) -> None:
-        """Unified epilogue: ``logits`` [>=S, V] rows pass the NaN guard,
-        then greedy sampling.  Prefill chunk KV scatters write-through at
-        the chunk's reserved placement slots; decode KV is stashed on the
-        host for `_on_unified_done` to fill once the slot is allocated."""
+    def _unified_emit(self, work, segs, logits, ids, k_packed, v_packed,
+                      colmap) -> None:
+        """Unified epilogue.  Host-sampling path: ``logits`` [>=S, V] rows
+        pass the NaN guard, then greedy sampling (``ids`` None); SPMD path:
+        ``ids`` [>=S] were sampled in the step (logits never leave it, so no
+        value guard, as in the reference).  ``colmap`` maps a packed column
+        to its row on the KV output's token axis (striped order under SPMD;
+        None = identity).  Prefill chunk KV scatters write-through at the
+        chunk's reserved placement slots; decode KV is stashed on the host
+        for `_on_unified_done` to fill once the slot is allocated."""
         eng = self.eng
         starts = np.concatenate([[0], np.cumsum([s.ln for s in segs])])
+        col_of = (lambda c: c) if colmap is None else (lambda c: colmap[c])
         emitted = set()
         for b, s in enumerate(segs):
             if not s.final:
                 continue
-            row = self._guard_logits(s.r, logits[b])
-            if row is None:
-                continue  # quarantined: no token, engine requeues
-            s.r.output_tokens.append(eng._sample_token(row))
+            if ids is None:
+                row = self._guard_logits(s.r, logits[b])
+                if row is None:
+                    continue  # quarantined: no token, engine requeues
+                s.r.output_tokens.append(eng._sample_token(row))
+            else:
+                s.r.output_tokens.append(int(ids[b]))
             emitted.add(s.r.rid)
         if not eng.pool.pools[0].store_values:
             return
@@ -538,7 +605,7 @@ class LocalExecutor:
         for b, s in enumerate(segs):
             if s.decode:
                 if s.r.rid in emitted:  # quarantined rows stash no KV
-                    dec_cols.append(int(starts[b]))
+                    dec_cols.append(int(col_of(starts[b])))
                     dec_reqs.append(s.r)
                 continue
             lo, hi = s.start, s.start + s.ln
@@ -550,18 +617,494 @@ class LocalExecutor:
                 if not len(p):
                     continue
                 cols, slots = per_inst.setdefault(inst, ([], []))
-                cols.append(starts[b] + (p - lo))
+                cols.append(np.asarray(col_of(starts[b] + (p - lo)), np.int64))
                 slots.append(eng.pool.pools[inst].slots_for(s.r.rid, p))
-        for inst, (cols, slots) in per_inst.items():
-            cidx = self._to_dev(np.concatenate(cols))
-            eng.pool.pools[inst].fill_packed(
-                np.concatenate(slots),
-                k_packed.index_select(1, cidx),
-                v_packed.index_select(1, cidx),
-            )
+        self._fill_columns(per_inst, k_packed, v_packed)
         if dec_cols:
             dc = self._to_dev(np.asarray(dec_cols, np.int64))
             kd = k_packed.index_select(1, dc).float().cpu().numpy()
             vd = v_packed.index_select(1, dc).float().cpu().numpy()
             for j, r in enumerate(dec_reqs):
                 eng._pending_kv[r.rid] = (kd[:, j:j + 1], vd[:, j:j + 1])
+
+
+class _SpmdCall(NamedTuple):
+    """One SPMD step of the mesh executor: ``fn(*args)`` runs this rank's
+    share (None on ranks outside the group, which receive the results);
+    ``mesh`` the group's `SubMesh`; ``aux`` the path's epilogue map."""
+
+    fn: Any
+    args: Tuple
+    aux: Any
+    mesh: Any
+
+
+class MeshExecutor(LocalExecutor):
+    """SPMD executor on `torch.distributed`: DoP>1 ring prefill, the
+    multi-master decode merge and the unified step across processes.
+
+    Process model: every rank of the world runs the same engine in
+    lockstep.  The control plane (scheduler, pool bookkeeping, the backoff
+    jitter) is numpy and deterministic, and the real-mode clock is the SIB
+    model, so ranks given the same seed, config and requests schedule the
+    same batches; only the compute plane is sharded.  Whatever the control
+    plane reads after a step comes out of a collective the same on every
+    rank: the sampled ids (all-gathered in the batch-sharded decode and the
+    unified step), or the host-sampled logits broadcast from one rank.
+
+    Construction binds engine instance ``i`` to data coordinate
+    ``i % data`` of a ("data", "model") mesh (`launch.mesh`): only the
+    ranks of that coordinate hold its pool mirror (`KVPool.bind_mesh`);
+    the others keep its host bookkeeping, and a host sync of it is a
+    broadcast from its owner.  Every rank holds the whole parameter set
+    (the reference replicates it too).  With ``data > 1`` the instance
+    count must equal ``data``: across processes, a group whose instances
+    alias one coordinate has no process that holds all its mirrors.  With
+    ``data == 1`` every group aliases, and the executor replays in process,
+    as the reference does.
+
+    * prefill: a group of more than one alive instance runs the ring
+      (`core.esp.ring_packed_prefill_spmd`) on the sub-mesh of exactly its
+      coordinates (cached per instance tuple — a `dist.new_group` is
+      entered by every rank in the same order, which the lockstep engine
+      gives); a DoP 1 group runs the packed step (K1) on every rank.
+    * decode (``spmd_decode=True``): ONE step over the sub-mesh of the
+      KV-holding instances, each rank's K2 partial over its own mirror.
+      ``batch_shard=True`` (default) runs the batch-sharded iteration
+      (`core.esp.paged_decode_iteration_spmd`: each rank embeds, runs the
+      stack and samples its B/n slice; all_gather(q) in, psum_scatter out,
+      ids and routed KV all-gathered); ``batch_shard=False`` the replicated
+      stack with a pmax + psum merge per layer
+      (`core.esp.paged_decode_spmd`).  ``decode_overlap=False`` waits for
+      each merge before the new-token partial.  Groups with one KV-holding
+      shard, and ``spmd_decode=False``, run the reference's per-shard loop:
+      every rank runs the stack, each shard's partial is computed by its
+      owner and broadcast home.
+    * unified (``spmd_decode=True``, two or more KV-holding instances):
+      `core.esp.unified_iteration_spmd` striped over the same sub-mesh;
+      otherwise the per-shard loop form.
+    * ``double_buffer=False`` starts each ring leg only after the fold.
+
+    Ranks outside a step's group receive its results by broadcast from the
+    group's leader (``result_broadcast`` in `ops.comm_bytes`).
+    """
+
+    def __init__(self, engine, mesh=None, *, double_buffer: bool = True,
+                 spmd_decode: bool = True, decode_overlap: bool = True,
+                 batch_shard: bool = True):
+        import torch.distributed as dist
+
+        from repro_torch.launch import mesh as lm
+
+        if mesh is None:
+            lm.init_process_group(engine.device)
+            world = dist.get_world_size()
+            data = min(len(engine.pool.pools), world)
+            mesh = lm.make_test_mesh(data=data, model=max(world // data, 1),
+                                     device=engine.device)
+        assert "data" in mesh.mesh_dim_names, mesh.mesh_dim_names
+        backend = lm.backend_for(engine.device)
+        if dist.get_backend() != backend:
+            raise RuntimeError(
+                f"the mesh's process group runs {dist.get_backend()}, the "
+                f"engine's device {engine.device} needs {backend}"
+            )
+        self.mesh = mesh
+        self.data = lm.axis_size(mesh, "data")
+        self._coord = lm.data_coordinate(mesh)
+        self._rank = dist.get_rank()
+        self._world = dist.get_world_size()
+        self.double_buffer = double_buffer
+        self.spmd_decode = spmd_decode
+        self.decode_overlap = decode_overlap
+        self.batch_shard = batch_shard
+        self._sub_meshes: Dict[Tuple[int, ...], Any] = {}
+        self._step_mesh = None
+        super().__init__(engine)
+
+    def _bind_pool_devices(self) -> None:
+        """Instance i lives on data coordinate i % data: the ranks of that
+        coordinate hold its mirror, the rank at (i % data, model 0) answers
+        its host syncs."""
+        from repro_torch.launch.mesh import rank_of
+
+        pools = self.eng.pool.pools
+        if self.data > 1 and len(pools) != self.data:
+            raise ValueError(
+                f"{len(pools)} engine instances on a mesh with data = "
+                f"{self.data}: across processes every instance needs its "
+                "own data coordinate"
+            )
+        for i, pool in enumerate(pools):
+            if self.data == 1:
+                pool.bind_device(self.device)
+            else:
+                pool.bind_mesh(self.device, rank_of(self.mesh, i % self.data),
+                               here=(i % self.data == self._coord))
+
+    def on_instance_failed(self, inst: int) -> None:
+        """Drop every cached sub-mesh holding the dead rank: a surviving
+        group re-forms at DoP-1 through `_group_mesh` / `_decode_mesh` on
+        first use, like any other elastic resize."""
+        for key in [k for k in self._sub_meshes if inst in k]:
+            del self._sub_meshes[key]
+
+    def _group_mesh(self, instances):
+        """`SubMesh` over exactly the group's data coordinates (cached per
+        instance tuple).  None (-> in-process replay) when the instances
+        alias a coordinate, which happens only with ``data == 1``."""
+        from repro_torch.launch.mesh import SubMesh
+
+        key = tuple(sorted(instances))
+        if key not in self._sub_meshes:
+            coords = [i % self.data for i in key]
+            self._sub_meshes[key] = (
+                None if len(set(coords)) < len(coords)
+                else SubMesh(self.mesh, coords)
+            )
+        return self._sub_meshes[key]
+
+    def _decode_mesh(self, instances):
+        """The sub-mesh of a decode / unified group's KV-holding instances
+        (None when they alias: the per-shard loop)."""
+        return self._group_mesh(instances)
+
+    def _replicated_params(self, mesh):
+        """Every rank holds the whole parameter set on its device (the
+        engine's), so nothing is transferred per group."""
+        return self.eng.params
+
+    # ------------------------------------------------------------- helpers
+    def _agree(self, logits):
+        """Host-sampled logits from the paths every rank runs: broadcast
+        from rank 0, so every rank samples the same tokens."""
+        if self._world == 1:
+            return logits
+        from repro_torch.kernels import ops
+
+        return ops.broadcast(logits.float().contiguous(), 0,
+                             key="result_broadcast")
+
+    def _publish(self, mesh, items):
+        """Hand a group step's results to the ranks outside the group:
+        ``items`` is a list of (tensor or None, shape, dtype); returns the
+        tensors, broadcast from the group's leader when some rank of the
+        world is outside the group."""
+        if len(mesh.ranks) == self._world:
+            return [x for x, _, _ in items]
+        from repro_torch.kernels import ops
+
+        out = [
+            x.contiguous() if self._rank == mesh.leader
+            else torch.empty(shape, dtype=dt, device=self.device)
+            for x, shape, dt in items
+        ]
+        ops.broadcast(tuple(out), mesh.leader, key="result_broadcast")
+        return out
+
+    def _paged_shard(self, pool, table, lengths):
+        """Per-shard loop across processes: a shard whose mirror lives in
+        another process is computed there and its partial broadcast home."""
+        if pool._mesh_src is None:
+            return super()._paged_shard(pool, table, lengths)
+        from repro_torch.core.paged_decode import PagedShard
+
+        if self._rank != pool._mesh_src:
+            return PagedShard(None, None, None, None, None, src=pool._mesh_src)
+        return super()._paged_shard(pool, table, lengths)._replace(
+            src=pool._mesh_src)
+
+    def _unified_shard(self, pool, tbl_t, len_t):
+        if pool._mesh_src is None:
+            return super()._unified_shard(pool, tbl_t, len_t)
+        from repro_torch.core.unified import UnifiedShard
+
+        if self._rank != pool._mesh_src:
+            return UnifiedShard(None, None, None, None, None,
+                                src=pool._mesh_src)
+        return super()._unified_shard(pool, tbl_t, len_t)._replace(
+            src=pool._mesh_src)
+
+    # --------------------------------------------------------------- prefill
+    def prefill_packed(self, batch) -> None:
+        """The packed step with the ring across the processes of the
+        group's sub-mesh; ranks outside the group receive the logits."""
+        alive = tuple(i for i in batch.instances if i not in self.eng.failed)
+        sub = self._group_mesh(alive) if len(alive) > 1 else None
+        if sub is None:
+            return super().prefill_packed(batch)
+        lens, packed = self._pack_prefill(batch)
+        logits = k_packed = v_packed = None
+        if sub.rank is not None:
+            self._step_mesh = sub
+            try:
+                logits, k_packed, v_packed = self._prefill_step(*packed)
+            finally:
+                self._step_mesh = None
+        bb, v_sz = len(packed[4]), self.eng.cfg.vocab_size
+        (logits,) = self._publish(sub, [(
+            None if logits is None else logits.float(), (bb, v_sz),
+            torch.float32,
+        )])
+        if len(sub.ranks) == self._world:
+            logits = self._agree(logits)
+        self._emit_prefill(batch, lens, logits.cpu().numpy(), k_packed,
+                           v_packed)
+
+    def _arm_packed_step(self, impl, offsets, dop: int) -> None:
+        impl.begin_step(offsets, dop=dop, mesh=self._step_mesh,
+                        double_buffer=self.double_buffer)
+
+    # ---------------------------------------------------------------- decode
+    def _decode_spmd_setup(self, g):
+        """Assemble the SPMD decode step for one DecodeBatch, or None when
+        the group cannot run SPMD (one KV-holding shard, or aliased
+        coordinates).  Each rank's paged operands are its own pool mirror in
+        place: the executor ships per-request block-table rows (tiny) and
+        ZERO KV bytes.  ``aux`` is None for the replicated program; for the
+        batch-sharded one it maps rid -> row of the master-major routed KV
+        output (rank*rb + j, from the route built out of
+        `DecodeBatch.masters`; a master holding no KV in this group routes
+        through rank 0)."""
+        from functools import partial
+
+        from repro_torch.core.esp import paged_decode_iteration_spmd
+
+        eng = self.eng
+        rids = [r.rid for r in g.requests]
+        n_cached = np.array([r.seq_len - 1 for r in g.requests], np.int32)
+        infos = []
+        for pool in eng.pool.pools:
+            if pool.instance_id in eng.failed:
+                continue
+            table, lengths = pool.block_table(rids)
+            if lengths.any():
+                infos.append((pool, table, lengths))
+        if len(infos) < 2:
+            return None
+        mesh = self._decode_mesh(tuple(p.instance_id for p, _, _ in infos))
+        if mesh is None:
+            return None
+        covered = np.sum([lg for _, _, lg in infos], axis=0)
+        # cache holds tokens 0..seq_len-2; the processed token's KV is
+        # produced by this step and appended at the master afterwards
+        assert (covered == n_cached).all(), (covered, n_cached)
+        n, b = len(infos), len(rids)
+        bb = self._bucket(b, lo=1)
+        if self.batch_shard:
+            # each rank owns bb/n batch rows (padded rows hold zero KV
+            # everywhere and their sampled tokens are discarded)
+            bb = -(-bb // n) * n
+        mpb = self._bucket(max(t.shape[1] for _, t, _ in infos), lo=1)
+        rb = route = rowmap = None
+        if self.batch_shard:
+            inst_rank = {p.instance_id: i for i, (p, _, _) in enumerate(infos)}
+            per_rank: List[List[int]] = [[] for _ in range(n)]
+            owner_of: List[Tuple[int, int]] = []
+            for bi, r in enumerate(g.requests):
+                rank = inst_rank.get(g.masters.get(r.rid), 0)
+                owner_of.append((rank, len(per_rank[rank])))
+                per_rank[rank].append(bi)
+            rb = self._bucket(max(len(rows) for rows in per_rank), lo=1)
+            route = np.zeros((n, rb), np.int64)  # padding rows read row 0
+            for i, rows in enumerate(per_rank):
+                route[i, :len(rows)] = rows
+            rowmap = {r.rid: rank * rb + j
+                      for r, (rank, j) in zip(g.requests, owner_of)}
+        aux = (rowmap, bb, None if rb is None else n * rb)
+        if mesh.rank is None:
+            return _SpmdCall(None, (), aux, mesh)
+        pool, table, lengths = infos[mesh.rank]
+        kd, vd, pd = pool.device_paged_kv()
+        tbl = np.zeros((bb, mpb), np.int32)
+        lens = np.zeros(bb, np.int32)
+        tbl[:b, :table.shape[1]] = table
+        lens[:b] = lengths
+        toks = np.zeros(bb, np.int64)
+        toks[:b] = [r.output_tokens[-1] for r in g.requests]
+        ncb = np.zeros(bb, np.int32)
+        ncb[:b] = n_cached
+        pos = pd if eng.cfg.sliding_window else None
+        dev = self._to_dev
+        if self.batch_shard:
+            fn = partial(paged_decode_iteration_spmd, mesh, eng.model,
+                         self._paged_impl, overlap=self.decode_overlap)
+            args = (self._replicated_params(mesh), dev(toks), dev(ncb), kd,
+                    vd, dev(tbl), dev(lens), pos, dev(route))
+        else:
+            fn = self._decode_replicated
+            args = (mesh, dev(toks), dev(ncb), kd, vd, dev(tbl), dev(lens),
+                    pos)
+        return _SpmdCall(fn, args, aux, mesh)
+
+    def _decode_replicated(self, mesh, toks, n_cached, kd, vd, tbl, lens,
+                           pos):
+        """The replicated-stack program (``batch_shard=False``): every rank
+        of the group runs the full batch, one pmax + psum merge per layer."""
+        from repro_torch.core.paged_decode import SpmdPagedShards
+        from repro_torch.models.transformer import Cache
+
+        impl = self._paged_impl
+        impl.begin_step(SpmdPagedShards(kd, vd, tbl, lens, pos), mesh=mesh,
+                        overlap=self.decode_overlap)
+        try:
+            logits, _, kvs = self.eng.model.decode(
+                self._replicated_params(mesh), toks, Cache(length=n_cached))
+        finally:
+            impl.end_step()
+        return logits, kvs
+
+    def decode_paged(self, g) -> None:
+        """One SPMD decode step for the whole group: per layer, each rank's
+        K2 partial over the mirror it holds and the LSE merge as a
+        collective; otherwise the per-shard loop (`LocalExecutor`)."""
+        setup = self._decode_spmd_setup(g) if self.spmd_decode else None
+        if setup is None:
+            return super().decode_paged(g)
+        fn, args, (rowmap, bb, rows), mesh = setup
+        eng = self.eng
+        out = None
+        if fn is not None:
+            prev_impl = eng.model.attn_impl
+            eng.model.attn_impl = self._paged_impl
+            try:
+                out = fn(*args)
+            finally:
+                eng.model.attn_impl = prev_impl
+        cfg = eng.cfg
+        kv_tail = (1, cfg.n_kv_heads, cfg.head_dim)
+        n_l = eng.pool.pools[0].n_attn
+        dt = eng.model.dtype
+        if rowmap is None:
+            logits, (k, v) = out if out is not None else (None, (None, None))
+            logits, k, v = self._publish(mesh, [
+                (None if logits is None else logits.float(),
+                 (bb, cfg.vocab_size), torch.float32),
+                (k, (n_l, bb) + kv_tail, dt),
+                (v, (n_l, bb) + kv_tail, dt),
+            ])
+            if len(mesh.ranks) == self._world:
+                logits = self._agree(logits)
+            self._emit_decoded(g, logits, (k, v))
+            return
+        ids, k_rt, v_rt = out if out is not None else (None, None, None)
+        ids, k_rt, v_rt = self._publish(mesh, [
+            (ids, (bb,), torch.int32),
+            (k_rt, (n_l, rows) + kv_tail, dt),
+            (v_rt, (n_l, rows) + kv_tail, dt),
+        ])
+        self._emit_decoded_routed(g, ids, k_rt, v_rt, rowmap)
+
+    def _emit_decoded_routed(self, g, toks_next, k_rt, v_rt, rowmap) -> None:
+        """Batch-sharded epilogue: tokens were sampled in the step (each rank
+        argmaxed its own logits slice, ids exchanged by all_gather) and the
+        new per-layer KV arrives master-major [L, n*rb, 1, KVH, D] — this
+        appends each request's id and stashes its routed KV rows for
+        _on_decode_done to fill.  As in the reference, the NaN-logit guard
+        cannot apply here (logits never leave the step)."""
+        eng = self.eng
+        toks = toks_next.cpu().numpy()
+        k_rt = k_rt.float().cpu().numpy()
+        v_rt = v_rt.float().cpu().numpy()
+        for b, r in enumerate(g.requests):
+            r.output_tokens.append(int(toks[b]))
+            row = rowmap[r.rid]
+            eng._pending_kv[r.rid] = (k_rt[:, row], v_rt[:, row])
+
+    # --------------------------------------------------------------- unified
+    def _unified_spmd_setup(self, work, segs):
+        """Assemble the SPMD unified step, or None when the iteration cannot
+        run SPMD (fewer than two KV-holding instances, or aliased
+        coordinates).  ``aux`` is (inv, tb, bb): ``inv`` maps a packed column
+        to its striped row on the step's token axis.  Each rank's paged
+        operands are its own pool plane in place, with per-TOKEN prefix
+        table rows in striped order."""
+        from functools import partial
+
+        from repro_torch.core import striped
+        from repro_torch.core.esp import unified_iteration_spmd
+
+        eng = self.eng
+        rids = [s.r.rid for s in segs]
+        limits = np.array([s.limit for s in segs], np.int64)
+        infos = []
+        for pool in eng.pool.pools:
+            if pool.instance_id in eng.failed:
+                continue
+            table, lengths = pool.prefix_block_table(rids, limits)
+            if lengths.any():
+                infos.append((pool, table, lengths))
+        if len(infos) < 2:
+            return None
+        mesh = self._decode_mesh(tuple(p.instance_id for p, _, _ in infos))
+        if mesh is None:
+            return None
+        covered = np.sum([lg for _, _, lg in infos], axis=0)
+        assert (covered == limits).all(), (covered, limits)
+        n = len(infos)
+        total = sum(s.ln for s in segs)
+        tb = self._token_bucket(-(-total // n)) * n
+        tokens, positions, offsets, last_idx = self._unified_pack(segs, tb)
+        bb = len(last_idx)
+        # striped layout: packed column c lives at striped row inv[c] (rank
+        # c % n); rank r's stripe is block r of the striped axis
+        perm = striped.stripe_indices(tb, n)
+        inv = striped.unstripe_indices(tb, n)
+        aux = (inv, tb, bb)
+        if mesh.rank is None:
+            return _SpmdCall(None, (), aux, mesh)
+        pool, table, lengths = infos[mesh.rank]
+        mpb = self._bucket(max(t.shape[1] for _, t, _ in infos), lo=1)
+        seg_lens = np.array([s.ln for s in segs], np.int64)
+        tbl_t = np.zeros((tb, mpb), np.int32)
+        len_t = np.zeros(tb, np.int32)
+        tbl_t[:total, :table.shape[1]] = np.repeat(table, seg_lens, axis=0)
+        len_t[:total] = np.repeat(lengths, seg_lens)
+        kd, vd, pd = pool.device_paged_kv()
+        dev = self._to_dev
+        fn = partial(unified_iteration_spmd, mesh, eng.model,
+                     self._unified_impl, double_buffer=self.double_buffer)
+        args = (self._replicated_params(mesh), dev(tokens[perm]),
+                dev(positions[perm]), offsets, dev(inv[last_idx]), kd, vd,
+                dev(tbl_t[perm]), dev(len_t[perm]),
+                pd if eng.cfg.sliding_window else None)
+        return _SpmdCall(fn, args, aux, mesh)
+
+    def unified(self, work) -> None:
+        """The whole unified iteration striped over the group's sub-mesh
+        (`core.esp.unified_iteration_spmd`): per layer, the decode-style
+        paged prefix merge and the prefill-style chunk ring; tokens sampled
+        in the step.  The KV stripes are all-gathered on the group
+        (``kv_gather``) for the write-through.  Otherwise the per-shard loop
+        form (`LocalExecutor`)."""
+        from repro_torch.kernels import ops
+
+        segs = self._unified_segments(work)
+        setup = (
+            self._unified_spmd_setup(work, segs) if self.spmd_decode else None
+        )
+        if setup is None:
+            return self._unified_local(work, segs)
+        fn, args, (inv, tb, bb), mesh = setup
+        self._unified_count(segs)
+        eng = self.eng
+        ids = k_packed = v_packed = None
+        if fn is not None:
+            prev_impl = eng.model.attn_impl
+            eng.model.attn_impl = self._unified_impl
+            try:
+                ids, k_st, v_st = fn(*args)
+            finally:
+                eng.model.attn_impl = prev_impl
+            k_packed, v_packed = ops.all_gather((k_st, v_st), mesh.group,
+                                                axis=1, key="kv_gather")
+        cfg = eng.cfg
+        kv_shape = (eng.pool.pools[0].n_attn, tb, cfg.n_kv_heads,
+                    cfg.head_dim)
+        ids, k_packed, v_packed = self._publish(mesh, [
+            (ids, (bb,), torch.int32),
+            (k_packed, kv_shape, eng.model.dtype),
+            (v_packed, kv_shape, eng.model.dtype),
+        ])
+        self._unified_emit(work, segs, None, ids.cpu().numpy(), k_packed,
+                           v_packed, inv)

@@ -511,8 +511,11 @@ class LoongServeEngine(BaseServingEngine):
     (``"cuda"`` by default; real-mode construction raises when no CUDA
     device is present, and tests pass ``device="cpu"`` explicitly).  A
     sim-mode engine holds no tensors: it resolves no device (``device`` is
-    None) and runs anywhere, as the reference's does.  The multi-device
-    mesh executor is not ported yet (ROADMAP queue 1 item 13).  The engine
+    None) and runs anywhere, as the reference's does.  `MeshExecutor`
+    (``executor="mesh"`` or an explicit ``mesh=``, a ("data", "model")
+    `DeviceMesh` from `launch.mesh`) runs the SPMD programs across the
+    processes of a `torch.distributed` world — NCCL on ``cuda``, gloo on
+    ``cpu`` — every rank running this engine in lockstep.  The engine
     itself holds NO kernel dispatch — only scheduling, lifecycle and
     accounting."""
 
@@ -544,15 +547,13 @@ class LoongServeEngine(BaseServingEngine):
         self._active_unified: Dict[int, UnifiedWork] = {}
         self.executor = None
         if self.real:
-            from repro_torch.engine.executor import LocalExecutor
+            from repro_torch.engine.executor import LocalExecutor, MeshExecutor
 
             if mesh is not None or executor == "mesh":
-                raise NotImplementedError(
-                    "the mesh executor is not ported to PyTorch yet "
-                    "(ROADMAP queue 1 item 13)"
-                )
-            assert executor in (None, "local"), executor
-            self.executor = LocalExecutor(self)
+                self.executor = MeshExecutor(self, mesh)
+            else:
+                assert executor in (None, "local"), executor
+                self.executor = LocalExecutor(self)
 
     # ------------------------------------------------------------- schedule
     def _has_live_work(self) -> bool:

@@ -10,10 +10,20 @@ per instance per layer, zero serial prefills; one `attention` per attention
 layer of a serial prefill, one `decode_partial` per attention layer of a
 serial decode step).  The fault hook is the seam the engine's bounded-retry
 path (and a chaos harness) injects `TransientDispatchError` through.
+
+The counted collectives (`ring_ppermute`, `psum`, `pmax`, `psum_scatter`,
+`all_gather`, `broadcast`) are the mesh executor's communication on
+`torch.distributed` — gloo for CPU tensors, NCCL for CUDA tensors: each adds
+one to `dispatch_counts` and the per-rank payload bytes to `comm_bytes`
+under its name, as the reference's `lax` collectives do.
 """
 from __future__ import annotations
 
 from collections import Counter
+from typing import Optional
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.kernels.flash_decode import flash_decode_partial
 from repro_torch.kernels.paged_flash_decode import paged_flash_decode_partial
@@ -51,10 +61,12 @@ def check_fault(point: str) -> None:
 
 
 dispatch_counts: Counter = Counter()
+comm_bytes: Counter = Counter()
 
 
 def reset_dispatch_counts() -> None:
     dispatch_counts.clear()
+    comm_bytes.clear()
 
 
 def attention(q, k, v, q_pos, k_pos, *, causal=True, window=None,
@@ -115,3 +127,137 @@ def paged_decode_partial(q, k_pages, v_pages, block_table, lengths,
         q, k_pages, v_pages, block_table, lengths, page_pos,
         query_pos=query_pos, window=window, softcap=softcap,
     )
+
+
+# ------------------------------------------------------------ collectives
+def _leaves(operands):
+    return tuple(operands) if isinstance(operands, (tuple, list)) else (operands,)
+
+
+def _payload_bytes(operands) -> int:
+    """Per-rank payload bytes of a collective's operands."""
+    return sum(x.numel() * x.element_size() for x in _leaves(operands))
+
+
+class Pending:
+    """An asynchronous collective in flight: `wait()` returns its result
+    (the structure of the operands: one tensor or a tuple)."""
+
+    def __init__(self, outs, works, single: bool, keep=()):
+        self._outs, self._works, self._single = outs, works, single
+        self._keep = keep  # send buffers must outlive the transfer
+
+    def wait(self):
+        for w in self._works:
+            w.wait()
+        self._works, self._keep = [], ()
+        return self._outs[0] if self._single else tuple(self._outs)
+
+
+def _finish(outs, works, operands, async_op: bool, keep=()):
+    p = Pending(outs, works, not isinstance(operands, (tuple, list)), keep)
+    return p if async_op else p.wait()
+
+
+def count_transfer(key: str, operands) -> None:
+    """Account an explicit transfer under `comm_bytes[key]`."""
+    comm_bytes[key] += _payload_bytes(operands)
+
+
+def ring_ppermute(operands, group, *, async_op: bool = False):
+    """Forward the operands one step around the ring of ``group``: ONE
+    `batch_isend_irecv` that sends to group rank r+1 and receives from
+    r-1 (the reference's `lax.ppermute` over `striped.ring_pairs`).  Every
+    ring leg of the SPMD prefill goes through here (one dispatch and the
+    per-rank payload bytes per leg).  ``async_op=True`` returns a `Pending`
+    at once — the double-buffered ring posts the next leg before the
+    fold."""
+    dispatch_counts["ring_ppermute"] += 1
+    comm_bytes["ring_ppermute"] += _payload_bytes(operands)
+    ranks = dist.get_process_group_ranks(group)
+    n, r = len(ranks), dist.get_rank(group)
+    dst, src = ranks[(r + 1) % n], ranks[(r - 1) % n]
+    xs = [x.contiguous() for x in _leaves(operands)]
+    outs = [torch.empty_like(x) for x in xs]
+    ops_ = [dist.P2POp(dist.isend, x, dst, group, tag=i)
+            for i, x in enumerate(xs)]
+    ops_ += [dist.P2POp(dist.irecv, o, src, group, tag=i)
+             for i, o in enumerate(outs)]
+    works = dist.batch_isend_irecv(ops_)
+    return _finish(outs, works, operands, async_op, keep=xs)
+
+
+def _all_reduce(key, op, operands, group, async_op):
+    dispatch_counts[key] += 1
+    comm_bytes[key] += _payload_bytes(operands)
+    outs = [x.clone(memory_format=torch.contiguous_format)
+            for x in _leaves(operands)]
+    works = [dist.all_reduce(o, op=op, group=group, async_op=True)
+             for o in outs]
+    return _finish(outs, works, operands, async_op)
+
+
+def psum(operands, group, *, async_op: bool = False):
+    """Counted all-reduce SUM: the SPMD decode LSE-merge reduces the
+    weighted (o·exp(m-M), l·exp(m-M)) accumulators across the KV shards
+    through here.  Bytes are the per-rank payload (the reduced tensor size),
+    not wire volume."""
+    return _all_reduce("psum", dist.ReduceOp.SUM, operands, group, async_op)
+
+
+def pmax(operands, group, *, async_op: bool = False):
+    """Counted all-reduce MAX (the decode merge's global running max M)."""
+    return _all_reduce("pmax", dist.ReduceOp.MAX, operands, group, async_op)
+
+
+def psum_scatter(operands, group, *, scatter_dimension: int = 0,
+                 tiled: bool = True, async_op: bool = False):
+    """Counted reduce-scatter: the batch-sharded decode merge reduces the
+    weighted accumulators AND hands each rank only its own slice of the
+    result (the paper's "send back partial results" addressed to the
+    masters, §4.2).  Bytes are the per-rank payload contributed (the full
+    pre-scatter tensor), like `psum`."""
+    assert tiled and scatter_dimension == 0, (tiled, scatter_dimension)
+    dispatch_counts["psum_scatter"] += 1
+    comm_bytes["psum_scatter"] += _payload_bytes(operands)
+    n = dist.get_world_size(group)
+    xs = [x.contiguous() for x in _leaves(operands)]
+    outs = [x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:])) for x in xs]
+    works = [dist.reduce_scatter_tensor(o, x, op=dist.ReduceOp.SUM,
+                                        group=group, async_op=True)
+             for o, x in zip(outs, xs)]
+    return _finish(outs, works, operands, async_op, keep=xs)
+
+
+def all_gather(operands, group, *, axis: int = 0, tiled: bool = True,
+               key: str = "all_gather"):
+    """Counted all-gather, concatenating the ranks' slices on ``axis`` in
+    group-rank order: the batch-sharded decode boundary's q-slice exchange,
+    the in-program sampled-token / new-KV exchanges and the unified step's
+    hidden-state and KV stripes.  Bytes are the per-rank payload
+    contributed (the LOCAL slice).  ``key`` names the counter (the ring
+    prefill's output gather counts under its own)."""
+    assert tiled, tiled
+    dispatch_counts[key] += 1
+    comm_bytes[key] += _payload_bytes(operands)
+    n = dist.get_world_size(group)
+    outs = []
+    for x in _leaves(operands):
+        x0 = x.movedim(axis, 0).contiguous()
+        out = x0.new_empty((n * x0.shape[0],) + tuple(x0.shape[1:]))
+        dist.all_gather_into_tensor(out, x0, group=group)
+        outs.append(out.movedim(0, axis))
+    return outs[0] if not isinstance(operands, (tuple, list)) else tuple(outs)
+
+
+def broadcast(operands, src: int, *, group=None, key: str = "broadcast"):
+    """Counted broadcast from global rank ``src`` (in place on every other
+    rank's buffers, which must have the operands' shapes and dtypes).  The
+    mesh executor hands a step's results to the ranks that did not compute
+    them through here, and the per-shard decode loop brings each remote
+    shard's partial home."""
+    dispatch_counts[key] += 1
+    comm_bytes[key] += _payload_bytes(operands)
+    for x in _leaves(operands):
+        dist.broadcast(x, src=src, group=group)
+    return operands

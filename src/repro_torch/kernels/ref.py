@@ -161,3 +161,57 @@ def packed_prefill_ring_chunk_ref(q, k, v, seq_offsets, carry, *, q_shard,
         A.Partial(carry[0][None], carry[1][None], carry[2][None]), part
     )
     return o[0], m[0], l[0]
+
+
+def paged_decode_merge_ref(q, k_new, v_new, shards, *, query_pos=None,
+                           window=None, softcap=None):
+    """Dense multi-shard oracle for the distributed decode merge (SPMD or
+    per-shard loop): the new token's own KV partial LSE-merged with one
+    paged partial per shard, finalized.  ``shards`` is an iterable of
+    ``(k_pages, v_pages, block_table, lengths, page_pos)`` tuples — the
+    per-instance pool views, merged in instance order."""
+    part = A.partial_attention(q, k_new, v_new, None, softcap=softcap)
+    for kp, vp, bt, lens, pos in shards:
+        p = paged_flash_decode_partial_ref(
+            q, kp, vp, bt, lens, pos, query_pos=query_pos, window=window,
+            softcap=softcap,
+        )
+        part = A.merge_partial(part, p)
+    return A.finalize_partial(part)
+
+
+def paged_decode_batch_sharded_ref(q, k_new, v_new, shards, *,
+                                   query_pos=None, window=None, softcap=None):
+    """Dense oracle for the BATCH-SHARDED multi-master decode boundary
+    (`core.esp.paged_decode_attn_sharded`) with ``n = len(shards)`` virtual
+    ranks: rank i holds shard i's paged KV and owns batch rows
+    ``[i*B/n, (i+1)*B/n)``.  Each rank's full-batch partial over its shard,
+    the weighted sum over ranks (the reduce-scatter), and every rank's
+    merge with ITS slice of the new-token partial; the slices concatenate
+    to the full [B,1,H,D] output."""
+    n = len(shards)
+    b = q.shape[0]
+    assert b % n == 0, (b, n)
+    b_l = b // n
+    parts = [
+        paged_flash_decode_partial_ref(
+            q, kp, vp, bt, lens, pos, query_pos=query_pos, window=window,
+            softcap=softcap,
+        )
+        for kp, vp, bt, lens, pos in shards
+    ]
+    m_g = torch.stack([p.m for p in parts]).amax(dim=0)
+    m_safe = torch.where(torch.isinf(m_g), torch.zeros_like(m_g), m_g)
+    w = [torch.where(torch.isinf(p.m), torch.zeros_like(p.m),
+                     torch.exp(p.m - m_safe)) for p in parts]
+    o_sum = sum(p.o * wi[..., None] for p, wi in zip(parts, w))
+    l_sum = sum(p.l * wi for p, wi in zip(parts, w))
+    outs = []
+    for r in range(n):
+        sl = slice(r * b_l, (r + 1) * b_l)
+        p_new = A.partial_attention(q[sl], k_new[sl], v_new[sl], None,
+                                    softcap=softcap)
+        merged = A.merge_partial(A.Partial(o_sum[sl], m_g[sl], l_sum[sl]),
+                                 p_new)
+        outs.append(A.finalize_partial(merged))
+    return torch.cat(outs, dim=0)

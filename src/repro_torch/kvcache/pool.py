@@ -62,6 +62,14 @@ The executor pins every mirror to the engine's device (``bind_device``).
 Checkpoints snapshot occupied-slot KV values from the host copy (forcing
 the deferred stale-slot download exactly once); restore drops the mirror
 and rebuilds it from host on the bound device.
+
+Across processes (the mesh executor, ``bind_mesh``) every rank keeps every
+pool's host bookkeeping — the same on every rank, since the control plane
+runs in lockstep — but only the ranks of the instance's data coordinate
+hold its mirror.  Elsewhere `fill_packed` only marks the slots stale, and a
+host sync is a collective: the owner rank downloads the stale slots and
+broadcasts them to every rank (``host_sync_broadcast`` in the kernels'
+`ops.comm_bytes`), so every rank's host copy stays the same.
 """
 from __future__ import annotations
 
@@ -176,6 +184,10 @@ class KVPool:
         self._stale_host = np.zeros(self.capacity, bool)
         self._stale_count = 0
         self.host_syncs = 0
+        # mesh executor: global rank whose mirror answers host syncs (None in
+        # one process) and whether this process holds the mirror
+        self._mesh_src: Optional[int] = None
+        self.mirror_here = True
 
     # ------------------------------------------------------------- accounting
     @property
@@ -395,7 +407,9 @@ class KVPool:
         if self._stale_count == 0:
             return
         slots = np.nonzero(self._stale_host)[0]
-        if self._mirror is not None:
+        if self._mesh_src is not None:
+            self._sync_host_collective(slots)
+        elif self._mirror is not None:
             kd, vd, _ = self._mirror
             # `.cpu()` first: numpy cannot read a CUDA tensor
             idx = self._dev_put(slots)
@@ -404,6 +418,29 @@ class KVPool:
             self.host_syncs += 1
         self._stale_host[:] = False
         self._stale_count = 0
+
+    def _sync_host_collective(self, slots: np.ndarray) -> None:
+        """The mesh form of the host sync: the owner rank downloads the
+        stale slots from its mirror and broadcasts them; every rank of the
+        world calls it at the same point (the stale set is the same
+        everywhere) and writes the same host values."""
+        import torch.distributed as dist
+
+        from repro_torch.kernels import ops
+
+        shape = (2, self.n_attn, len(slots)) + self.k.shape[2:]
+        if dist.get_rank() == self._mesh_src:
+            kd, vd, _ = self._mirror
+            idx = self._dev_put(slots)
+            buf = torch.stack([kd.index_select(1, idx),
+                               vd.index_select(1, idx)]).float().contiguous()
+        else:
+            buf = torch.empty(shape, dtype=torch.float32, device=self.device)
+        ops.broadcast(buf, self._mesh_src, key="host_sync_broadcast")
+        host = buf.cpu().numpy()
+        self.k[:, slots] = host[0]
+        self.v[:, slots] = host[1]
+        self.host_syncs += 1
 
     def dirty_slot_count(self) -> int:
         """Slots the next `device_kv()` sync would upload (capacity if a
@@ -479,6 +516,14 @@ class KVPool:
             self.device = device
             self.drop_mirror()
 
+    def bind_mesh(self, device, src: int, here: bool) -> None:
+        """Mesh-executor binding: this process computes on ``device``;
+        global rank ``src`` holds the instance's mirror and answers host
+        syncs; ``here`` says whether this process holds a mirror of it."""
+        self.bind_device(device)
+        self._mesh_src = int(src)
+        self.mirror_here = bool(here)
+
     def _dev_put(self, x) -> torch.Tensor:
         """Copy a numpy array (or tensor) to the bound device.  Always a copy:
         on the CPU `torch.from_numpy` would alias the host management copy."""
@@ -498,9 +543,25 @@ class KVPool:
         landed through `fill_packed` were written device-side already and
         upload nothing."""
         assert self.store_values, "device mirror needs value storage"
+        if not self.mirror_here:
+            raise RuntimeError(
+                f"KVPool {self.instance_id}: its mirror lives on rank "
+                f"{self._mesh_src}, not in this process"
+            )
         full, dirty = self.consume_dirty()
         cur = self._mirror
-        if cur is None or full:
+        if cur is not None and full and self._mesh_src is not None:
+            # a full resync on a mesh rank keeps the mirror-only (stale)
+            # slots in place and uploads the rest: a host sync here would be
+            # a collective the other ranks are not in
+            keep = np.nonzero(~self._stale_host)[0]
+            _mirror_scatter(
+                cur, self._dev_put(keep), self._dev_put(self.k[:, keep]),
+                self._dev_put(self.v[:, keep]),
+                self._dev_put(self.slot_pos[keep]),
+            )
+            self.mirror_uploaded_slots += len(keep)
+        elif cur is None or full:
             # a full resync uploads the HOST copy wholesale: pull any
             # stale-host slots (authoritative only in the mirror) down first
             # or their KV would be overwritten with never-synced host data
@@ -557,6 +618,10 @@ class KVPool:
             return
         slots = np.asarray(slots, np.int64)
         if len(slots) == 0:
+            return
+        if not self.mirror_here:
+            # another process holds the mirror and scatters these slots
+            self._mark_stale_host(slots)
             return
         kd, vd, pd = self.device_kv()  # sync any stale dirty slots first
         # the packed step's output is cast to the mirror's type (f32) on the

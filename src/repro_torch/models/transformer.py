@@ -419,6 +419,16 @@ class Model(nn.Module):
         logits = self.unembed(params, x)[:, 0]
         return logits, new_cache, kvs
 
+    def decode_sampled(self, params, tokens, cache: Cache):
+        """One decode step + greedy sampling for whatever batch slice the
+        caller holds: inside the batch-sharded SPMD iteration each rank runs
+        it on its own B/n slice.  `torch.argmax` returns the first maximal
+        index, as the engine's host `_sample_token` (`np.argmax`) does, so
+        ties break the same way.  Returns (sampled ids [b] int32, updated
+        cache, per-layer new KV)."""
+        logits, new_cache, kvs = self.decode(params, tokens, cache)
+        return torch.argmax(logits, dim=-1).to(torch.int32), new_cache, kvs
+
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device="cuda") -> Cache:

@@ -83,6 +83,7 @@ def test_port_imports_no_jax_and_no_reference():
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert len(mods) >= 30, mods\n"
+        "assert 'repro_torch.launch.mesh' in mods, mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
@@ -107,13 +108,41 @@ def test_default_device_raises_without_cuda(monkeypatch):
                          params=init_params(cfg, torch.Generator(), "cpu"))
 
 
-def test_mesh_executor_is_not_ported():
+def test_mesh_executor_is_not_ported(tmp_path):
+    """``executor="mesh"`` builds the port's `MeshExecutor` (no "not
+    ported" error any more): on a one-rank gloo world the mesh has one data
+    coordinate, every instance aliases onto it and the executor replays in
+    process, giving the local executor's tokens.  Multi-rank worlds are
+    tests/test_torch_mesh.py's."""
+    import torch.distributed as dist
+
+    from repro_torch.engine.executor import MeshExecutor
+    from repro_torch.launch.mesh import init_process_group, make_test_mesh
+
     cfg = t_reduced(T_REGISTRY["lwm-7b"], n_layers=1)
     model = build_model(cfg, device="cpu")
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        LoongServeEngine(cfg, 2, 64, store_values=True, model=model,
-                         params=params, executor="mesh", device="cpu")
+    init_process_group("cpu", init_method=f"file://{tmp_path / 'rdv'}",
+                       world_size=1, rank=0)
+    try:
+        out = []
+        for kw in ({"executor": "mesh"},
+                   {"mesh": make_test_mesh(1, 1, device="cpu")}, {}):
+            eng = LoongServeEngine(cfg, 2, 256, store_values=True,
+                                   model=model, params=params, device="cpu",
+                                   **kw)
+            assert isinstance(eng.executor, MeshExecutor) == bool(kw)
+            rng = np.random.default_rng(4)
+            reqs = [Request(input_len=n, max_new_tokens=3, arrival=0.0,
+                            prompt=rng.integers(0, 256, n).tolist())
+                    for n in (40, 9, 23)]
+            for r in reqs:
+                eng.submit(r)
+            assert len(eng.run().finished) == len(reqs)
+            out.append([r.output_tokens for r in reqs])
+        assert out[0] == out[1] == out[2]
+    finally:
+        dist.destroy_process_group()
 
 
 def test_jax_oracle_agrees_with_port_oracle():

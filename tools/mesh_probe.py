@@ -1,0 +1,395 @@
+#!/usr/bin/env python3
+"""The mesh executor across the cards of one host, on NCCL.
+
+    python3 tools/mesh_probe.py            # one rank per visible CUDA card
+    python3 tools/mesh_probe.py --cpu 4    # 4 gloo ranks on the CPU, reduced width
+
+Spawns one process per rank (rank r on card r) that opens the world with
+`repro_torch.launch.mesh.init_process_group` and runs three phases over a
+(world, 1) ("data", "model") mesh:
+
+  1. ring: `core.esp.ring_packed_prefill_spmd` at lwm-7b width (H = KVH =
+     32, D = 128, bf16) over the eight prompts of chip_smoke.py's phase 4
+     packed on one token axis, with ``double_buffer`` on and off: held
+     against plain K1 (`packed_flash_prefill_plain`) with chip_smoke's
+     tensor-core tolerance, then timed (CUDA events around 10 calls after
+     2 warm-ups, the slowest rank's), beside K1 over the whole batch on one
+     card and one ring leg alone (`ops.ring_ppermute` of one KV stripe);
+     on a card, one call of each arm is also traced on rank 0
+     (torch.profiler): the span from its first kernel to its last, the
+     time some kernel runs, the NCCL kernels' and the other kernels' time,
+     and how much of the NCCL time overlaps other kernels;
+  2. decode: `paged_decode_spmd` and the batch-sharded boundary
+     `paged_decode_attn_sharded` at phase 4's decode batch (B 8, the
+     prompts as cached lengths, page size 16, f32 pool), each rank holding
+     the pool's round-robin token share of every request: held against
+     `ref.paged_decode_merge_ref` / `ref.paged_decode_batch_sharded_ref`
+     over all shares within 1e-4, and timed beside K2 + merge over the
+     whole cache on one card;
+  3. engine: `LoongServeEngine(..., mesh=...)` at lwm-7b width, 2 layers,
+     f32, one instance per rank, serving phase 5's six requests (8 new
+     tokens): every rank's tokens equal, and equal to the port's serial
+     oracle; the run's dispatch counts and collective bytes.
+
+Rank 0 prints every phase; the last line is a JSON summary.  Exits
+non-zero if a phase fails, a rank hangs past the time limit, or (without
+``--cpu``) there is no CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import queue
+import subprocess
+import sys
+import tempfile
+import time
+import traceback
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+REPS, WARMUP = 10, 2
+
+
+def _cpu_tree(x, dev):
+    import torch
+
+    if isinstance(x, dict):
+        return {k: _cpu_tree(v, dev) for k, v in x.items()}
+    return x.to(dev) if isinstance(x, torch.Tensor) else x
+
+
+def _timed(fn, group, dev):
+    """Per-call ms of ``fn`` on this rank (events on a card, the host clock
+    on the CPU), then the slowest rank's."""
+    import torch
+    import torch.distributed as dist
+
+    for _ in range(WARMUP):
+        fn()
+    dist.barrier()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(REPS):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        ms = a.elapsed_time(b) / REPS
+    else:
+        t0 = time.perf_counter()
+        for _ in range(REPS):
+            fn()
+        ms = (time.perf_counter() - t0) * 1e3 / REPS
+    t = torch.tensor([ms], dtype=torch.float32, device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return float(t.item())
+
+
+def _merge(iv):
+    out = []
+    for a, b in sorted(iv):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _trace(fn):
+    """Kernel timeline of one call of ``fn`` (torch.profiler, this rank):
+    ms from the first kernel's start to the last kernel's end, ms in which
+    some kernel runs, ms of NCCL kernels and of the others, and ms of NCCL
+    time during which another kernel runs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    nccl, other = [], []
+    for e in prof.events():
+        if getattr(e, "device_type", None) is None or "CUDA" not in str(e.device_type):
+            continue
+        iv = (e.time_range.start, e.time_range.end)
+        (nccl if "nccl" in e.name.lower() else other).append(iv)
+    if not nccl + other:
+        return {}
+    n_m, o_m, all_m = _merge(nccl), _merge(other), _merge(nccl + other)
+    inter = 0.0
+    for a, b in n_m:
+        for c, d in o_m:
+            inter += max(0.0, min(b, d) - max(a, c))
+    span = max(b for _, b in all_m) - min(a for a, _ in all_m)
+    return {"span_ms": span / 1e3,
+            "busy_ms": sum(b - a for a, b in all_m) / 1e3,
+            "nccl_ms": sum(b - a for a, b in n_m) / 1e3,
+            "other_ms": sum(b - a for a, b in o_m) / 1e3,
+            "nccl_overlapped_ms": inter / 1e3}
+
+
+def _shares(lens, n, page, kvh, d, seed):
+    """The pool's round-robin token share of each request on each of ``n``
+    ranks, paged: per rank (k_pages, v_pages [n_pages, page, KVH, D] f32,
+    table [B, max_pages], lengths [B]); page 0 stays empty.  Built on the
+    CPU from ``seed`` so every rank builds the same shares."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for s in range(n):
+        cnt = [len(range(s, ln, n)) for ln in lens]
+        need = [-(-c // page) for c in cnt]
+        table = np.zeros((len(lens), max(max(need), 1)), np.int32)
+        start = 1
+        for b, k in enumerate(need):
+            table[b, :k] = np.arange(start, start + k)
+            start += k
+        shape = (start, page, kvh, d)
+        out.append((torch.randn(shape, generator=g), torch.randn(shape, generator=g),
+                    torch.as_tensor(table), torch.as_tensor(np.asarray(cnt, np.int32))))
+    return out
+
+
+def _rank(rank, world, init, cpu, q_out):
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke as cs
+        from repro_torch.configs import get_config, reduced
+        from repro_torch.convert import init_params
+        from repro_torch.core import esp
+        from repro_torch.engine.request import Request
+        from repro_torch.engine.server import LoongServeEngine
+        from repro_torch.kernels import ops, ref
+        from repro_torch.kernels.paged_flash_prefill import packed_flash_prefill_plain
+        from repro_torch.launch.mesh import init_process_group, make_test_mesh
+        from repro_torch.models import build_model
+
+        dev = torch.device("cpu" if cpu else f"cuda:{rank}")
+        if cpu:
+            torch.set_num_threads(1)
+        else:
+            torch.cuda.set_device(rank)
+            torch.backends.cuda.matmul.allow_tf32 = False
+        backend = init_process_group(dev.type, init_method=init,
+                                     world_size=world, rank=rank)
+        mesh = make_test_mesh(world, 1, device=dev.type)
+        group = mesh.get_group("data")
+        cfg = get_config("lwm-7b")
+        if cpu:
+            cfg = reduced(cfg)
+        h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        scale = 16 if cpu else 1
+        lens = [int(x) // scale for x in
+                np.random.default_rng(0).integers(512, 2049, 8)]
+        res = {"rank": rank, "backend": backend, "world": world,
+               "device": str(dev) if cpu else torch.cuda.get_device_name(dev)}
+        log = []
+
+        # ---- 1. the ring
+        unit = 128 * world
+        t = -(-sum(lens) // unit) * unit
+        off = cs._offsets(lens, len(lens))
+        g = torch.Generator().manual_seed(17)
+        dt = torch.float32 if cpu else torch.bfloat16
+        q, k, v = (torch.randn(t, hh, d, generator=g).to(dev, dt)
+                   for hh in (h, kvh, kvh))
+        want = packed_flash_prefill_plain(q, k, v, off)
+        for db in (True, False):
+            ops.reset_dispatch_counts()
+            got = esp.ring_packed_prefill_spmd(mesh, q, k, v, off,
+                                               double_buffer=db)
+            counts, nbytes = dict(ops.dispatch_counts), dict(ops.comm_bytes)
+            res[f"ring_err_db{int(db)}"] = cs._check(
+                f"ring n {world} double_buffer {db}", got, want, log,
+                v=None if cpu else v)
+        res["ring_counts"], res["ring_bytes"] = counts, nbytes
+        del want, got
+        res["ring_ms_db1"] = _timed(lambda: esp.ring_packed_prefill_spmd(
+            mesh, q, k, v, off, double_buffer=True), group, dev)
+        res["ring_ms_db0"] = _timed(lambda: esp.ring_packed_prefill_spmd(
+            mesh, q, k, v, off, double_buffer=False), group, dev)
+        res["k1_one_card_ms"] = _timed(lambda: ops.prefill_packed(q, k, v, off),
+                                       group, dev)
+        if not cpu:
+            for db in (True, False):
+                call = (lambda db=db: esp.ring_packed_prefill_spmd(
+                    mesh, q, k, v, off, double_buffer=db))
+                if rank == 0:
+                    res[f"ring_trace_db{int(db)}"] = _trace(call)
+                else:
+                    call()
+        ks, vs = k[rank::world].contiguous(), v[rank::world].contiguous()
+        res["ring_leg_ms"] = _timed(lambda: ops.ring_ppermute((ks, vs), group),
+                                    group, dev)
+        res["ring_leg_bytes"] = 2 * ks.numel() * ks.element_size()
+        res["ring_tokens"] = t
+        del q, k, v, ks, vs
+
+        # ---- 2. the decode merges
+        b = len(lens)
+        shares = [tuple(x.to(dev) for x in s)
+                  for s in _shares(lens, world, 16, kvh, d, 19)]
+        g = torch.Generator().manual_seed(23)
+        qd, kn, vn = (torch.randn(b, 1, hh, d, generator=g).to(dev)
+                      for hh in (h, kvh, kvh))
+        qpos = torch.as_tensor(np.asarray(lens, np.int32), device=dev)
+        views = [(kp, vp, bt, ln, None) for kp, vp, bt, ln in shares]
+        kp, vp, bt, ln = shares[rank]
+        want = ref.paged_decode_merge_ref(qd, kn, vn, views, query_pos=qpos)
+        want_bs = ref.paged_decode_batch_sharded_ref(qd, kn, vn, views,
+                                                     query_pos=qpos)
+        b_l = b // world
+        rows = slice(rank * b_l, (rank + 1) * b_l)
+        for overlap in (True, False):
+            got = esp.paged_decode_spmd(mesh, qd, kn, vn, qpos, kp, vp, bt, ln,
+                                        overlap=overlap)
+            res[f"spmd_err_ov{int(overlap)}"] = cs._check(
+                f"paged_decode_spmd overlap {overlap}", got, want, log)
+            got = esp.paged_decode_attn_sharded(
+                group, world, qd[rows], kn[rows], vn[rows], qpos, kp, vp, bt,
+                ln, overlap=overlap)
+            res[f"sharded_err_ov{int(overlap)}"] = cs._check(
+                f"paged_decode_attn_sharded overlap {overlap}", got,
+                want_bs[rows], log)
+        res["spmd_ms"] = _timed(lambda: esp.paged_decode_spmd(
+            mesh, qd, kn, vn, qpos, kp, vp, bt, ln), group, dev)
+        res["sharded_ms"] = _timed(lambda: esp.paged_decode_attn_sharded(
+            group, world, qd[rows], kn[rows], vn[rows], qpos, kp, vp, bt, ln),
+            group, dev)
+        kw, vw, btw, lnw = cs._paged_layout(np.random.default_rng(3), lens, 16,
+                                            1, kvh, d, dev)
+
+        def whole():  # K2 + merge over the whole cache on one card
+            p = ops.paged_decode_partial(qd, kw[0], vw[0], btw, lnw,
+                                         query_pos=qpos)
+            from repro_torch.models import attention as A
+
+            return A.finalize_partial(A.merge_partial(
+                A.partial_attention(qd, kn, vn, None), p))
+
+        res["k2_one_card_ms"] = _timed(whole, group, dev)
+        del shares, views, kw, vw
+
+        # ---- 3. the engine
+        cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+        params = _cpu_tree(init_params(cfg2, torch.Generator().manual_seed(1),
+                                       "cpu"), dev)
+        model = build_model(cfg2, device=dev)
+        eng = LoongServeEngine(cfg2, world, 2048 // scale * 2, store_values=True,
+                               model=model, params=params, mesh=mesh,
+                               device=dev)
+        rng = np.random.default_rng(1)
+        lens2 = [int(x) // scale for x in rng.integers(128, 1025, 6)]
+        reqs = [Request(input_len=n, max_new_tokens=8, arrival=0.0,
+                        prompt=rng.integers(0, cfg2.vocab_size, n).tolist())
+                for n in lens2]
+        for r in reqs:
+            eng.submit(r)
+        ops.reset_dispatch_counts()
+        dist.barrier()
+        t0 = time.perf_counter()
+        m = eng.run()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        res["engine_wall_s"] = time.perf_counter() - t0
+        assert len(m.finished) == len(reqs)
+        res["engine_counts"] = dict(ops.dispatch_counts)
+        res["engine_bytes"] = dict(ops.comm_bytes)
+        res["tokens"] = [list(r.output_tokens) for r in reqs]
+        if rank == 0:
+            for r in reqs:
+                want_t = ref.serial_decode_oracle(model, params, r.prompt, 7)
+                assert r.output_tokens == want_t, (r.rid, r.output_tokens, want_t)
+            res["oracle"] = "equal"
+        res["log"] = log
+        q_out.put((rank, res, None))
+    except BaseException:  # every failure goes to the parent
+        q_out.put((rank, None, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cpu", type=int, default=0, metavar="N",
+                    help="rehearse with N gloo ranks on the CPU")
+    ap.add_argument("--timeout", type=float, default=900.0)
+    args = ap.parse_args()
+    import torch
+    import torch.multiprocessing as mp
+
+    if args.cpu:
+        world = args.cpu
+    else:
+        if not torch.cuda.is_available():
+            print("mesh_probe: no CUDA device", file=sys.stderr)
+            return 2
+        world = torch.cuda.device_count()
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, check=True).stdout.strip())
+    tmp = tempfile.mkdtemp(prefix="mesh_probe_")
+    init = f"file://{os.path.join(tmp, 'rdv')}"
+    ctx = mp.get_context("spawn")
+    q_out = ctx.Queue()
+    procs = [ctx.Process(target=_rank, args=(r, world, init, bool(args.cpu), q_out))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    results, errors = {}, []
+    try:
+        while len(results) + len(errors) < world:
+            left = args.timeout - (time.perf_counter() - t0)
+            if left <= 0:
+                errors.append(f"timed out after {args.timeout:.0f} s")
+                break
+            try:
+                rank, res, err = q_out.get(timeout=min(left, 5.0))
+            except queue.Empty:
+                continue
+            if err is not None:
+                errors.append(f"rank {rank}:\n{err}")
+                break
+            results[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=10.0)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=5.0)
+    if errors:
+        print("\n".join(errors), file=sys.stderr)
+        return 1
+    toks = [results[r]["tokens"] for r in range(world)]
+    assert all(t == toks[0] for t in toks), "ranks disagree on the tokens"
+    r0 = results[0]
+    print(f"[mesh_probe] world {world} on {r0['backend']}, {r0['device']}")
+    print("\n".join(r0["log"]))
+    for key in ("ring_tokens", "ring_ms_db1", "ring_ms_db0", "ring_trace_db1",
+                "ring_trace_db0", "k1_one_card_ms",
+                "ring_leg_ms", "ring_leg_bytes", "ring_counts", "ring_bytes",
+                "spmd_ms", "sharded_ms", "k2_one_card_ms", "engine_wall_s",
+                "engine_counts", "engine_bytes", "oracle"):
+        print(f"[mesh_probe] {key}: {r0.get(key)}")
+    print(f"[mesh_probe] took {time.perf_counter() - t0:.1f} s")
+    summary = {k: v for k, v in r0.items() if k not in ("log", "tokens")}
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
