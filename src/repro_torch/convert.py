@@ -24,7 +24,10 @@ leaves [n_super, ...].  The encoder-decoder (whisper) has "embed",
 
 `params_from_numpy` takes that tree as nested dicts of numpy arrays (a test
 turns the JAX `init` pytree into one with ``jax.tree.map(np.asarray,
-params)``; this module never sees JAX).  `init_params` draws the same tree
+params)``; this module never sees JAX); `opt_state_from_numpy` does the same
+for the AdamW state ``{"m", "v", "step"}``, and `params_to_numpy` /
+`opt_state_to_numpy` are their inverses — together the reference train
+CLI's pickled checkpoint layout.  `init_params` draws the same tree
 directly on the device from a `torch.Generator`, as the reference's init
 does: normal(0, 0.02) weights (0.5 for the Mamba2 conv, 0.01 for whisper's
 ``pos_embed``, 0.1 for the mLSTM gate projection ``w_if``, 0.05 for the
@@ -207,6 +210,40 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
         return out
 
     return conv(param_shapes(cfg), tree, "")
+
+
+def opt_state_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
+                         device="cuda") -> Dict[str, Any]:
+    """Load the reference's AdamW state ``{"m", "v", "step"}`` (moments
+    shaped like the parameters, f32; step an int32 scalar) onto `device`."""
+    dev = resolve_device(device)
+    return {"m": params_from_numpy(cfg, tree["m"], dev),
+            "v": params_from_numpy(cfg, tree["v"], dev),
+            "step": torch.as_tensor(np.asarray(tree["step"], np.int32),
+                                    device=dev)}
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:  # numpy has no bf16: ml_dtypes', as JAX's
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The parameter tree as nested dicts of numpy arrays (dtypes kept)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    return _to_numpy(tree)
+
+
+def opt_state_to_numpy(opt: Dict[str, Any]) -> Dict[str, Any]:
+    """The AdamW state as the reference pickles it: nested numpy moments and
+    an int32 scalar step."""
+    return {"m": params_to_numpy(opt["m"]), "v": params_to_numpy(opt["v"]),
+            "step": np.asarray(_to_numpy(opt["step"]), np.int32)}
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,

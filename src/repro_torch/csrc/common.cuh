@@ -28,6 +28,13 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// log-sum-exp of a row's softmax from its running max m and denominator l
+// (l is taken against max(m, -1e29), as in every kernel here); +inf for a
+// row with no key, so that exp(t - lse) is 0 for it in the backward
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? fmaxf(m, -1e29f) + logf(l) : __int_as_float(0x7f800000);
+}
+
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 

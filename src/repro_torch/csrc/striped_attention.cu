@@ -73,8 +73,8 @@ template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads) striped_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int* __restrict__ q_pos, const int* __restrict__ k_pos,
-    T* __restrict__ o, int sq, int sk, int h, int kvh, int d, int qpk, int bq,
-    int causal, int window, float softcap, float scale) {
+    T* __restrict__ o, float* __restrict__ lse, int sq, int sk, int h, int kvh,
+    int d, int qpk, int bq, int causal, int window, float softcap, float scale) {
   constexpr int QS = DP + 1;  // padded row stride: conflict-free columns
   constexpr int PS = kBK + 1;
   constexpr int NC = DP / 8;  // output columns per thread
@@ -258,12 +258,15 @@ __global__ void __launch_bounds__(kThreads) striped_attention_kernel(
       const int col = cg + 8 * jj;
       if (col < d) repro::store(&ob[row * d + col], o_acc[i][jj] / denom);
     }
+    if (lse != nullptr && cg == 0)  // every lane of the row group holds m, l
+      lse[((size_t)b * h + g * qpk + r % qpk) * sq + t0 + r / qpk] =
+          repro::row_lse(m_row[i], l_row[i]);
   }
 }
 
 template <typename T, int DP>
 int launch(const void* q, const void* k, const void* v, const int* q_pos,
-           const int* k_pos, void* o, int b, int sq, int sk, int h, int kvh,
+           const int* k_pos, void* o, float* lse, int b, int sq, int sk, int h, int kvh,
            int d, int causal, int window, float softcap, float scale,
            cudaStream_t stream) {
   const int qpk = h / kvh;
@@ -279,8 +282,8 @@ int launch(const void* q, const void* k, const void* v, const int* q_pos,
   dim3 grid((sq + bq - 1) / bq, kvh, b);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), q_pos, k_pos, static_cast<T*>(o), sq, sk, h,
-      kvh, d, qpk, bq, causal, window, softcap, scale);
+      static_cast<const T*>(v), q_pos, k_pos, static_cast<T*>(o), lse, sq, sk,
+      h, kvh, d, qpk, bq, causal, window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
@@ -329,9 +332,9 @@ __global__ void __launch_bounds__(tc::Cta<DP>::kThreads, tc::Cta<DP>::kMinBlocks
     striped_attention_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ q_pos,
-    const int* __restrict__ k_pos, __nv_bfloat16* __restrict__ o, int sq,
-    int sk, int h, int kvh, int d, int qpk, int bq, int causal, int window,
-    float softcap, float scale) {
+    const int* __restrict__ k_pos, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int sq, int sk, int h, int kvh, int d, int qpk,
+    int bq, int causal, int window, float softcap, float scale) {
   constexpr int kThreads = tc::Cta<DP>::kThreads;
   // dynamic shared memory: the core's tiles, then the visit bitmaps, one
   // bit per 64-key tile of each, interleaved by 32-bit word
@@ -421,6 +424,15 @@ __global__ void __launch_bounds__(tc::Cta<DP>::kThreads, tc::Cta<DP>::kMinBlocks
   float inv[2];  // 1 / l, or 1 for a row without keys (o = 0)
 #pragma unroll
   for (int sl = 0; sl < 2; ++sl) inv[sl] = acc.l[sl] != 0.f ? 1.f / acc.l[sl] : 1.f;
+  if (lse != nullptr && (tid & 3) == 0) {  // the four lanes of a quad share m, l
+#pragma unroll
+    for (int sl = 0; sl < 2; ++sl) {
+      const int r = tc::frag_row(sl);
+      if (mask.on[sl])
+        lse[((size_t)b * h + g * qpk + r % qpk) * sq + t0 + r / qpk] =
+            repro::row_lse(acc.m[sl], acc.l[sl]);
+    }
+  }
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) acc.o[i] *= inv[(i >> 1) & 1];
   tc::store_rows<DP>(acc.o, [&](int r, int col, float4 x) {
@@ -435,7 +447,7 @@ __global__ void __launch_bounds__(tc::Cta<DP>::kThreads, tc::Cta<DP>::kMinBlocks
 
 template <int DP>
 int launch_tc(const void* q, const void* k, const void* v, const int* q_pos,
-              const int* k_pos, void* o, int b, int sq, int sk, int h, int kvh,
+              const int* k_pos, void* o, float* lse, int b, int sq, int sk, int h, int kvh,
               int d, int causal, int window, float softcap, float scale,
               cudaStream_t stream) {
   const int qpk = h / kvh;
@@ -452,21 +464,21 @@ int launch_tc(const void* q, const void* k, const void* v, const int* q_pos,
   kern<<<grid, threads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), q_pos, k_pos,
-      static_cast<__nv_bfloat16*>(o), sq, sk, h, kvh, d, qpk, bq, causal,
+      static_cast<__nv_bfloat16*>(o), lse, sq, sk, h, kvh, d, qpk, bq, causal,
       window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, const int* q_pos,
-               const int* k_pos, void* o, int b, int sq, int sk, int h,
+               const int* k_pos, void* o, float* lse, int b, int sq, int sk, int h,
                int kvh, int d, int causal, int window, float softcap,
                float scale, cudaStream_t s) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {  // tensor cores
     if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15)
       return (int)cudaErrorMisalignedAddress;
 #define REPRO_LAUNCH(DP)                                                   \
-  return launch_tc<DP>(q, k, v, q_pos, k_pos, o, b, sq, sk, h, kvh, d,     \
+  return launch_tc<DP>(q, k, v, q_pos, k_pos, o, lse, b, sq, sk, h, kvh, d, \
                        causal, window, softcap, scale, s)
     switch (tc::head_template(d)) {
       case 64: REPRO_LAUNCH(64);
@@ -477,7 +489,7 @@ int dispatch_d(const void* q, const void* k, const void* v, const int* q_pos,
 #undef REPRO_LAUNCH
   } else {  // f32: the fp32-FMA body
 #define REPRO_LAUNCH(DP)                                                   \
-  return launch<T, DP>(q, k, v, q_pos, k_pos, o, b, sq, sk, h, kvh, d,     \
+  return launch<T, DP>(q, k, v, q_pos, k_pos, o, lse, b, sq, sk, h, kvh, d, \
                        causal, window, softcap, scale, s)
     if (d <= 32) REPRO_LAUNCH(32);
     if (d <= 64) REPRO_LAUNCH(64);
@@ -493,7 +505,9 @@ int dispatch_d(const void* q, const void* k, const void* v, const int* q_pos,
 extern "C" {
 
 // q [b, sq, h, d], k / v [b, sk, kvh, d] and o [b, sq, h, d], contiguous,
-// all of one dtype (0 = float32, 1 = bfloat16); q_pos [sq] and k_pos [sk]
+// all of one dtype (0 = float32, 1 = bfloat16); lse, when not null, f32
+// [b, h, sq]: each row's m + log l (+inf for a row with no key), the saved
+// statistic of the backward (striped_attention_bwd.cu); q_pos [sq] and k_pos [sk]
 // int32 in any order.  causal != 0 masks q_pos < k_pos; window <= 0 and
 // softcap <= 0 disable those masks.  Requires d % 8 == 0, d <= 256,
 // h % kvh == 0, h / kvh <= 64, b <= 65535 and sq, sk >= 1; for bfloat16 also
@@ -501,7 +515,8 @@ extern "C" {
 // memory beside the tiles (sk up to about nine million).  Returns the
 // launch's cudaError_t.
 int repro_striped_attention(const void* q, const void* k, const void* v,
-                            const int* q_pos, const int* k_pos, void* o, int b,
+                            const int* q_pos, const int* k_pos, void* o,
+                            float* lse, int b,
                             int sq, int sk, int h, int kvh, int d, int dtype,
                             int causal, int window, float softcap, float scale,
                             void* stream) {
@@ -510,11 +525,11 @@ int repro_striped_attention(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_d<float>(q, k, v, q_pos, k_pos, o, b, sq, sk, h, kvh, d,
-                             causal, window, softcap, scale, s);
+    return dispatch_d<float>(q, k, v, q_pos, k_pos, o, lse, b, sq, sk, h, kvh,
+                             d, causal, window, softcap, scale, s);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, q_pos, k_pos, o, b, sq, sk, h,
-                                     kvh, d, causal, window, softcap, scale, s);
+    return dispatch_d<__nv_bfloat16>(q, k, v, q_pos, k_pos, o, lse, b, sq, sk,
+                                     h, kvh, d, causal, window, softcap, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

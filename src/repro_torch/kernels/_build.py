@@ -54,8 +54,12 @@ _SIGNATURES = {
         "repro_paged_decode_error_string": [_I],
     },
     "striped_attention": {
-        "repro_striped_attention": [_P] * 6 + [_I] * 9 + [_F, _F, _P],
+        "repro_striped_attention": [_P] * 7 + [_I] * 9 + [_F, _F, _P],
         "repro_striped_attention_error_string": [_I],
+    },
+    "striped_attention_bwd": {
+        "repro_striped_attention_bwd": [_P] * 12 + [_I] * 9 + [_F, _F, _P],
+        "repro_striped_attention_bwd_error_string": [_I],
     },
     "flash_decode": {
         "repro_flash_decode": [_P] * 8 + [_I] * 12 + [_F, _F, _P],

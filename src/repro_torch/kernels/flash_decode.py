@@ -28,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import decode_split
+from repro_torch.kernels import decode_split, refuse_grad
 from repro_torch.kernels.ref import flash_decode_partial_ref
 from repro_torch.models.attention import Partial, empty_partial
 
@@ -75,7 +75,9 @@ def flash_decode_partial(q, k, v, lengths, *, k_pos_offset: int = 0,
                          window: Optional[int] = None,
                          softcap: Optional[float] = None) -> Partial:
     """K5: one launch over the dense KV shard; returns the unnormalized
-    Partial of every request's query over it."""
+    Partial of every request's query over it.  Refuses inputs that require
+    grad (`kernels.refuse_grad`)."""
+    refuse_grad("flash_decode_partial", q, k, v)
     if q.device.type == "cpu":
         return flash_decode_partial_plain(q, k, v, lengths,
                                           k_pos_offset=k_pos_offset,

@@ -31,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import decode_split
+from repro_torch.kernels import decode_split, refuse_grad
 from repro_torch.models.attention import Partial, empty_partial, partial_attention
 
 #: kernel launches on CUDA tensors (comparisons with the plain version and
@@ -116,7 +116,9 @@ def paged_flash_decode_partial(
     softcap: Optional[float] = None,
 ) -> Partial:
     """K2: one ragged batched launch over the paged pool; returns the
-    unnormalized Partial over this instance's KV shard for every request."""
+    unnormalized Partial over this instance's KV shard for every request.
+    Refuses inputs that require grad (`kernels.refuse_grad`)."""
+    refuse_grad("paged_flash_decode_partial", q, k_pages, v_pages)
     if q.device.type == "cpu":
         return paged_flash_decode_partial_plain(
             q, k_pages, v_pages, block_table, lengths, page_pos,

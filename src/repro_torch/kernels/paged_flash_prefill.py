@@ -28,6 +28,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.models import attention as A
 
 #: kernel launches on CUDA tensors, by kernel name (plain CPU calls and
@@ -151,7 +152,9 @@ def _launch(q, k, v, q_offsets, k_offsets, carry, *, q_shard, k_shard,
 def packed_flash_prefill(q, k, v, seq_offsets, *, window=None,
                          softcap=None) -> torch.Tensor:
     """K1: one ragged launch over the packed token axis; returns the
-    normalized attention output [T, H, D] (f32)."""
+    normalized attention output [T, H, D] (f32).  Refuses inputs that
+    require grad (`kernels.refuse_grad`)."""
+    refuse_grad("packed_flash_prefill", q, k, v)
     if q.device.type == "cpu":
         return packed_flash_prefill_plain(q, k, v, seq_offsets, window=window,
                                           softcap=softcap)
@@ -170,7 +173,9 @@ def packed_flash_prefill_ring_chunk(
     """K3: one ring step — fold one striped KV chunk into the carried flash
     state with a single ragged launch.  Returns the updated (o, m, l);
     finalize with ``o / l`` after the last step (empty rows keep m=-inf,
-    l=0)."""
+    l=0).  Refuses inputs that require grad (`kernels.refuse_grad`)."""
+    refuse_grad("packed_flash_prefill_ring_chunk", q, k, v,
+                *(carry if carry is not None else ()))
     if q.device.type == "cpu":
         return packed_flash_prefill_ring_chunk_plain(
             q, k, v, q_offsets, k_offsets, carry, q_shard=q_shard,

@@ -27,6 +27,77 @@ def striped_flash_attention_ref(q, k, v, q_pos, k_pos, *, causal=True,
     )
 
 
+def striped_flash_attention_ref_lse(q, k, v, q_pos, k_pos, *, causal=True,
+                                    window=None, softcap=None):
+    """Plain K4 forward with its row statistics: (o [B,Sq,H,D] in q's
+    dtype, lse [B,H,Sq] in the accumulation type: f32, f64 for f64).  ``lse = m + log l`` of the row's softmax
+    over the soft-capped, scaled scores; a row with no key gets ``+inf``,
+    so ``exp(t - lse)`` is 0 for it in the backward."""
+    qp = torch.as_tensor(q_pos).to(q.device)
+    kp = torch.as_tensor(k_pos).to(q.device)
+    need_mask = causal or window is not None
+    mask = (A.mask_from_positions(qp, kp, causal=causal, window=window)
+            if need_mask else None)
+    part = A.partial_attention(q, k, v, mask, softcap=softcap)
+    lse = torch.where(part.l > 0, part.m + torch.log(part.l),
+                      torch.full((), torch.inf, device=q.device))
+    return A.finalize_partial(part).to(q.dtype), lse.transpose(1, 2).contiguous()
+
+
+def striped_flash_attention_bwd_ref(q, k, v, o, do, lse, q_pos, k_pos, *,
+                                    causal=True, window=None, softcap=None,
+                                    rows=None):
+    """Plain K4 backward: the explicit FlashAttention-2 gradient formula in
+    f32 (f64 for f64 operands), not autograd.  The reference's order of operations
+    (`repro/models/attention.py:102-142`): ``s = (q k^T) * scale``, then the
+    softcap ``t = c tanh(s / c)``, then the mask; ``p = exp(t - lse)``,
+    ``delta = rowsum(do * o)``, ``dv = p^T do``, ``dp = do v^T``,
+    ``ds = p (dp - delta)`` (times ``1 - tanh^2(s / c)`` under a softcap),
+    ``dq = scale ds k``, ``dk = scale ds^T q``; GQA sums dk / dv over the q
+    heads of each KV head.  ``rows`` evaluates the query rows in blocks of
+    that many (dk / dv accumulated across blocks), so a full-width check
+    never holds the whole [B, H, Sq, Sk] score matrix.  Returns (dq, dk,
+    dv) in q's dtype."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    scale = 1.0 / d ** 0.5
+    dev = q.device
+    qp = torch.as_tensor(q_pos).to(dev)
+    kp = torch.as_tensor(k_pos).to(dev)
+    kf = A.widen(A.gqa_expand(k, g))
+    vf = A.widen(A.gqa_expand(v, g))
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(kf)
+    dqs = []
+    step = rows or max(sq, 1)
+    for i0 in range(0, sq, step):
+        sl = slice(i0, i0 + step)
+        qf, dof = A.widen(q[:, sl]), A.widen(do[:, sl])
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+        if softcap is not None:
+            th = torch.tanh(s / softcap)
+            s = softcap * th
+        p = torch.exp(s - lse[:, :, sl, None].to(s.dtype))
+        if causal or window is not None:
+            mask = A.mask_from_positions(qp[sl], kp, causal=causal,
+                                         window=window)
+            p = torch.where(mask[None, None], p, torch.zeros((), device=dev))
+        delta = (dof * A.widen(o[:, sl])).sum(-1).transpose(1, 2)  # [B,H,q]
+        dv += torch.einsum("bhqk,bqhd->bkhd", p, dof)
+        dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+        ds = p * (dp - delta[..., None])
+        if softcap is not None:
+            ds = ds * (1.0 - th * th)
+        dqs.append(torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale)
+        dk += torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    sk = k.shape[1]
+    dk = dk.view(b, sk, kvh, g, d).sum(3)
+    dv = dv.view(b, sk, kvh, g, d).sum(3)
+    dq = torch.cat(dqs, dim=1) if dqs else torch.zeros_like(q)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def flash_decode_partial_ref(q, k, v, lengths, *, k_pos_offset=0,
                              window=None, softcap=None) -> A.Partial:
     """Plain K5: the unnormalized partial of q [B,1,H,D] over one dense KV

@@ -1,14 +1,22 @@
-"""Position-masked flash attention (K4).
+"""Position-masked flash attention (K4) and its gradient.
 
 PyTorch counterpart of `repro/kernels/striped_attention.py`, run by the
 hand-written CUDA kernel in `csrc/striped_attention.cu`.  It is the
-attention of every serial prefill (`DefaultAttnImpl.prefill_attn`).  The
-wrapper:
+attention of every serial prefill and of every train step
+(`DefaultAttnImpl.prefill_attn`).  The wrapper:
 
   * on a CPU tensor, returns the plain PyTorch version
     (`ref.striped_flash_attention_ref`, the dense `full_attention`);
   * on a CUDA tensor, launches the kernel (counted in `launch_counts`) or
     raises on what the kernel does not take.  Nothing falls back.
+
+Under a gradient (grad mode on and any of q, k, v requiring grad) the call
+goes through `StripedFlashAttentionFn`: its forward also keeps each row's
+log-sum-exp, and its backward is the hand-written kernel of
+`csrc/striped_attention_bwd.cu` (counted under
+``"striped_flash_attention_bwd"``).  On CPU tensors the same `Function`
+runs the plain forward with its LSE (`ref.striped_flash_attention_ref_lse`)
+and the plain backward formula (`ref.striped_flash_attention_bwd_ref`).
 
 Contract: ``q`` [B, Sq, H, D], ``k``/``v`` [B, Sk, KVH, D] of one dtype (f32
 or bf16), ``q_pos`` [Sq] / ``k_pos`` [Sk] integer global positions in any
@@ -25,7 +33,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.ref import striped_flash_attention_ref
+from repro_torch.kernels.ref import (
+    striped_flash_attention_bwd_ref,
+    striped_flash_attention_ref,
+    striped_flash_attention_ref_lse,
+)
 
 #: kernel launches on CUDA tensors (comparisons with the plain version and
 #: CPU calls are not launches of the kernel)
@@ -44,9 +56,8 @@ def _positions(pos, n: int, dev) -> torch.Tensor:
     return p
 
 
-def _launch(q, k, v, q_pos, k_pos, *, causal, window, softcap):
-    from repro_torch.kernels import _build
-
+def _check_operands(q, k, v, window):
+    """Raise on what the kernels (forward and backward) do not take."""
     if q.device.type != "cuda":
         raise ValueError(f"striped_attention kernel: tensors on {q.device}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
@@ -61,34 +72,117 @@ def _launch(q, k, v, q_pos, k_pos, *, causal, window, softcap):
                          "h % kvh == 0, h / kvh <= 64, d % 8 == 0, d <= 256)")
     if window is not None and window < 1:
         raise ValueError(f"striped_attention kernel: window {window} < 1")
+
+
+def _mask_args(causal, window, softcap):
+    return (int(bool(causal)), int(window) if window is not None else 0,
+            float(softcap) if softcap is not None else 0.0)
+
+
+def _launch(q, k, v, q_pos, k_pos, *, causal, window, softcap, lse=False):
+    """One forward launch; returns o, or (o, lse [B, H, Sq] f32) with
+    ``lse=True``."""
+    from repro_torch.kernels import _build
+
+    _check_operands(q, k, v, window)
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
     dev = q.device
     qp, kp = _positions(q_pos, sq, dev), _positions(k_pos, sk, dev)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
+    row_lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev) if lse else None
     lib = _build.load_library("striped_attention")
     P = _build.ptr
     err = lib.repro_striped_attention(
-        P(q), P(k), P(v), P(qp), P(kp), P(o), b, sq, sk, h, kvh, d,
-        _DTYPE_CODE[q.dtype], int(bool(causal)),
-        int(window) if window is not None else 0,
-        float(softcap) if softcap is not None else 0.0, 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(dev).cuda_stream,
+        P(q), P(k), P(v), P(qp), P(kp), P(o), P(row_lse), b, sq, sk, h, kvh, d,
+        _DTYPE_CODE[q.dtype], *_mask_args(causal, window, softcap),
+        1.0 / math.sqrt(d), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, "striped_attention", err)
-    return o
+    return (o, row_lse) if lse else o
+
+
+def _launch_bwd(q, k, v, o, do, lse, q_pos, k_pos, *, causal, window,
+                softcap):
+    """One backward call (the delta pass, the dk / dv grid and the dq grid);
+    returns (dq, dk, dv) in the operands' dtype."""
+    from repro_torch.kernels import _build
+
+    _check_operands(q, k, v, window)
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    if (o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype
+            or lse.shape != (b, h, sq) or lse.dtype != torch.float32):
+        raise ValueError(f"striped_attention_bwd kernel: o {tuple(o.shape)} "
+                         f"{o.dtype}, do {tuple(do.shape)}, lse "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    dev = q.device
+    qp, kp = _positions(q_pos, sq, dev), _positions(k_pos, sk, dev)
+    q, k, v, o, lse = (x.contiguous() for x in (q, k, v, o, lse))
+    do = do.to(q.dtype).contiguous()  # autograd may hand a strided gradient
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    lib = _build.load_library("striped_attention_bwd")
+    P = _build.ptr
+    err = lib.repro_striped_attention_bwd(
+        P(q), P(k), P(v), P(o), P(do), P(lse), P(qp), P(kp), P(dq), P(dk),
+        P(dv), P(delta), b, sq, sk, h, kvh, d, _DTYPE_CODE[q.dtype],
+        *_mask_args(causal, window, softcap), 1.0 / math.sqrt(d),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(lib, "striped_attention_bwd", err)
+    return dq, dk, dv
+
+
+class StripedFlashAttentionFn(torch.autograd.Function):
+    """K4 under a gradient.  The forward keeps (q, k, v, o, lse, positions);
+    the backward returns (dq, dk, dv).  The tensor's device decides what
+    runs: the CUDA kernels, or on the CPU the plain forward with its LSE and
+    the plain backward formula."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, causal, window, softcap):
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        if q.device.type == "cpu":
+            o, lse = striped_flash_attention_ref_lse(q, k, v, q_pos, k_pos, **kw)
+        else:
+            o, lse = _launch(q, k, v, q_pos, k_pos, lse=True, **kw)
+            launch_counts["striped_flash_attention"] += 1
+        ctx.save_for_backward(q, k, v, o, lse,
+                              torch.as_tensor(q_pos).to(q.device),
+                              torch.as_tensor(k_pos).to(q.device))
+        ctx.kw = kw
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, qp, kp = ctx.saved_tensors
+        if q.device.type == "cpu":
+            dq, dk, dv = striped_flash_attention_bwd_ref(q, k, v, o, do, lse, qp,
+                                                         kp, **ctx.kw)
+        else:
+            dq, dk, dv = _launch_bwd(q, k, v, o, do, lse, qp, kp, **ctx.kw)
+            launch_counts["striped_flash_attention_bwd"] += 1
+        return dq, dk, dv, None, None, None, None, None
 
 
 def striped_flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
                             window: Optional[int] = None,
                             softcap: Optional[float] = None) -> torch.Tensor:
     """K4: one launch of position-masked flash attention; returns the
-    normalized output [B, Sq, H, D] in q's dtype."""
+    normalized output [B, Sq, H, D] in q's dtype.  Under a gradient the
+    output carries `StripedFlashAttentionFn`'s backward."""
+    if q.shape[1] == 0 or k.shape[1] == 0:  # no query, or no key: zeros
+        return torch.zeros_like(q)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return StripedFlashAttentionFn.apply(q, k, v, q_pos, k_pos, causal,
+                                             window, softcap)
     if q.device.type == "cpu":
         return striped_flash_attention_plain(q, k, v, q_pos, k_pos,
                                              causal=causal, window=window,
                                              softcap=softcap)
-    if q.shape[1] == 0 or k.shape[1] == 0:  # no query, or no key: zeros
-        return torch.zeros_like(q)
     out = _launch(q, k, v, q_pos, k_pos, causal=causal, window=window,
                   softcap=softcap)
     launch_counts["striped_flash_attention"] += 1

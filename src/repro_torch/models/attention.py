@@ -34,6 +34,12 @@ def empty_partial(b: int, sq: int, h: int, d: int, device=None) -> Partial:
     )
 
 
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """The accumulation type of the attention math: f32, or f64 for f64
+    operands (the CPU gradient checks)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def gqa_expand(kv: torch.Tensor, q_per_kv: int) -> torch.Tensor:
     """[B, S, KVH, D] -> [B, S, KVH*q_per_kv, D] by repetition."""
     if q_per_kv == 1:
@@ -89,7 +95,7 @@ def partial_attention(
     scale = scale if scale is not None else 1.0 / (d**0.5)
     # f32 accumulation (the reference's preferred_element_type=f32): bf16
     # products are exact in f32, so widening the operands is the same math
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    s = torch.einsum("bqhd,bkhd->bhqk", widen(q), widen(k))
     s = s * scale
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
@@ -107,7 +113,7 @@ def partial_attention(
     if mask is not None:
         p = torch.where(mask, p, torch.zeros((), device=p.device))
     l = p.sum(dim=-1)  # [B,H,Sq]
-    o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    o = torch.einsum("bhqk,bkhd->bqhd", p, widen(v))
     m_out = torch.where(m <= NEG_INF / 2, torch.full((), -torch.inf, device=m.device), m_safe)
     return Partial(o=o, m=m_out.transpose(1, 2), l=l.transpose(1, 2))
 

@@ -9,7 +9,10 @@ placed by the engine) + cross-attention over the encoder output (static KV).
 Only the decoder's self-attention goes through `attn_impl`: with the default
 impl, K4 for prefill and K5 for the decode history.  The encoder's attention
 and the cross-attention are plain `attention.full_attention`, as the
-reference computes them outside any kernel.
+reference computes them outside any kernel.  ``remat`` recomputes each
+encoder and decoder layer in the backward, where the reference wraps both
+scan bodies in ``jax.checkpoint``; ``constrain`` is the sharding-hint hook
+(the identity without a mesh).
 """
 from __future__ import annotations
 
@@ -24,8 +27,10 @@ from repro_torch.models import layers
 from repro_torch.models.transformer import (
     Cache,
     DefaultAttnImpl,
+    _id_constrain,
     _lead,
     layer_params,
+    maybe_remat,
     torch_dtype,
 )
 
@@ -34,13 +39,16 @@ class EncDecModel(nn.Module):
     """Holds no tensors itself: the parameter tree (`repro_torch.convert`)
     is an explicit argument of every entry point."""
 
-    def __init__(self, cfg: ModelConfig, attn_impl=None, device="cuda"):
+    def __init__(self, cfg: ModelConfig, attn_impl=None, constrain=None,
+                 remat: bool = False, device="cuda"):
         super().__init__()
         assert cfg.is_encoder_decoder
         from repro_torch.device import resolve_device
 
         self.cfg = cfg
         self.attn_impl = attn_impl or DefaultAttnImpl()
+        self.constrain = constrain or _id_constrain
+        self.remat = remat
         self.dtype = torch_dtype(cfg.dtype)
         self.device = resolve_device(device)
 
@@ -55,8 +63,9 @@ class EncDecModel(nn.Module):
         return o.reshape(o.shape[0], o.shape[1], -1) @ w.reshape(-1, w.shape[-1])
 
     def _qkv(self, p, xq, xkv):
-        return self._proj(xq, p["wq"]), self._proj(xkv, p["wk"]), \
-            self._proj(xkv, p["wv"])
+        c = self.constrain
+        return (c(self._proj(xq, p["wq"]), "q"), c(self._proj(xkv, p["wk"]), "kv"),
+                c(self._proj(xkv, p["wv"]), "kv"))
 
     # --------------------------------------------------------------- encoder
     def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
@@ -64,17 +73,22 @@ class EncDecModel(nn.Module):
         x = frames.to(self.dtype)
         x = x + layers.sinusoidal_positions(x.shape[1], cfg.d_model,
                                             device=x.device).to(self.dtype)
+        x = self.constrain(x, "enc_act")
         enc = params["enc_layers"]
         for li in range(_lead(enc)):
-            lp = layer_params(enc, li)
-            h = layers.apply_norm(lp["norm1"], x, cfg.norm_kind, cfg.norm_eps)
-            q, k, v = self._qkv(lp["attn"], h, h)
-            o = attn.full_attention(q, k, v, causal=False)
-            x = x + self._out(o, lp["attn"]["wo"])
-            h = layers.apply_norm(lp["norm2"], x, cfg.norm_kind, cfg.norm_eps)
-            x = x + layers.apply_ffn(lp["ffn"], h, cfg.ffn_kind)
+            x = maybe_remat(self.remat, self._enc_layer, layer_params(enc, li), x)
         return layers.apply_norm(params["enc_norm"], x, cfg.norm_kind,
                                  cfg.norm_eps)
+
+    def _enc_layer(self, lp, x):
+        cfg = self.cfg
+        h = layers.apply_norm(lp["norm1"], x, cfg.norm_kind, cfg.norm_eps)
+        q, k, v = self._qkv(lp["attn"], h, h)
+        o = attn.full_attention(q, k, v, causal=False)
+        x = x + self._out(o, lp["attn"]["wo"])
+        h = layers.apply_norm(lp["norm2"], x, cfg.norm_kind, cfg.norm_eps)
+        return self.constrain(x + layers.apply_ffn(lp["ffn"], h, cfg.ffn_kind),
+                              "enc_act")
 
     # --------------------------------------------------------------- decoder
     def _decoder_stack(self, params, x, enc_out, positions, *, k_caches=None,
@@ -83,47 +97,61 @@ class EncDecModel(nn.Module):
         """Returns (x, (k, v) self-attention KV stacked [L, B, T, KVH, D],
         (cross_k, cross_v) stacked likewise — None on decode).  On decode
         `cache_len` is [B]."""
-        cfg = self.cfg
         dec = params["dec_layers"]
         ks, vs, cks, cvs = [], [], [], []
         for li in range(_lead(dec)):
             lp = layer_params(dec, li)
-            h = layers.apply_norm(lp["norm1"], x, cfg.norm_kind, cfg.norm_eps)
-            q, k, v = self._qkv(lp["self_attn"], h, h)
             if decode:
-                o = self.attn_impl.decode_attn(q, k_caches[li], v_caches[li], k, v,
-                                               cache_len, window=None, softcap=None)
+                x, (k, v), _ = self._dec_layer(
+                    lp, x, None, None, kc=k_caches[li], vc=v_caches[li],
+                    ck=cross_k[li], cv=cross_v[li], cache_len=cache_len,
+                    decode=True)
             else:
-                o = self.attn_impl.prefill_attn(q, k, v, positions, positions,
-                                                causal=True, window=None,
-                                                softcap=None)
-            ks.append(k)
-            vs.append(v)
-            x = x + self._out(o, lp["self_attn"]["wo"])
-            # cross attention over the static encoder KV
-            h = layers.apply_norm(lp["norm2"], x, cfg.norm_kind, cfg.norm_eps)
-            if decode:
-                q = self._proj(h, lp["cross_attn"]["wq"])
-                ck, cv = cross_k[li], cross_v[li]
-            else:
-                q, ck, cv = self._qkv(lp["cross_attn"], h, enc_out)
+                x, (k, v), (ck, cv) = maybe_remat(self.remat, self._dec_layer,
+                                                  lp, x, enc_out, positions)
                 cks.append(ck)
                 cvs.append(cv)
-            o = attn.full_attention(q, ck, cv, causal=False)
-            x = x + self._out(o, lp["cross_attn"]["wo"])
-            h = layers.apply_norm(lp["norm3"], x, cfg.norm_kind, cfg.norm_eps)
-            x = x + layers.apply_ffn(lp["ffn"], h, cfg.ffn_kind)
+            ks.append(k)
+            vs.append(v)
         kvs = (torch.stack(ks), torch.stack(vs))
         if decode:
             return x, kvs, None
         return x, kvs, (torch.stack(cks), torch.stack(cvs))
+
+    def _dec_layer(self, lp, x, enc_out, positions, *, kc=None, vc=None,
+                   ck=None, cv=None, cache_len=None, decode=False):
+        """One decoder layer: returns (x, self-attention (k, v), the
+        cross-attention (k, v) over the encoder output, or (ck, cv) as given
+        on decode)."""
+        cfg = self.cfg
+        h = layers.apply_norm(lp["norm1"], x, cfg.norm_kind, cfg.norm_eps)
+        q, k, v = self._qkv(lp["self_attn"], h, h)
+        if decode:
+            o = self.attn_impl.decode_attn(q, kc, vc, k, v, cache_len,
+                                           window=None, softcap=None)
+        else:
+            o = self.attn_impl.prefill_attn(q, k, v, positions, positions,
+                                            causal=True, window=None,
+                                            softcap=None)
+        x = self.constrain(x + self._out(o, lp["self_attn"]["wo"]), "act")
+        # cross attention over the static encoder KV
+        h = layers.apply_norm(lp["norm2"], x, cfg.norm_kind, cfg.norm_eps)
+        if decode:
+            q = self._proj(h, lp["cross_attn"]["wq"])
+        else:
+            q, ck, cv = self._qkv(lp["cross_attn"], h, enc_out)
+        o = attn.full_attention(q, ck, cv, causal=False)
+        x = self.constrain(x + self._out(o, lp["cross_attn"]["wo"]), "act")
+        h = layers.apply_norm(lp["norm3"], x, cfg.norm_kind, cfg.norm_eps)
+        x = self.constrain(x + layers.apply_ffn(lp["ffn"], h, cfg.ffn_kind), "act")
+        return x, (k, v), (ck, cv)
 
     def _embed_tokens(self, params, tokens, positions):
         x = layers.embed_lookup(params["embed"], tokens).to(self.dtype)
         pe = params["pos_embed"][positions].to(self.dtype)
         if pe.ndim == 2:
             pe = pe[None]
-        return x + pe
+        return self.constrain(x + pe, "act")
 
     def _final(self, params, x):
         return layers.apply_norm(params["final_norm"], x, self.cfg.norm_kind,
@@ -132,7 +160,7 @@ class EncDecModel(nn.Module):
     # ---------------------------------------------------------------- public
     def hidden(self, params, batch, positions=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Final-normed decoder hidden states [B,T,d] and a zero aux loss."""
-        enc_out = self.encode(params, batch["frames"])
+        enc_out = self.constrain(self.encode(params, batch["frames"]), "enc_out")
         tokens = batch["tokens"]
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -141,7 +169,7 @@ class EncDecModel(nn.Module):
         return self._final(params, x), torch.zeros((), device=x.device)
 
     def unembed(self, params, x):
-        return layers.lm_head_logits(x, params["lm_head"])
+        return self.constrain(layers.lm_head_logits(x, params["lm_head"]), "logits")
 
     def forward(self, params, batch, positions=None):
         """Teacher-forced forward. batch: {frames, tokens}.  Returns
@@ -151,7 +179,7 @@ class EncDecModel(nn.Module):
 
     def prefill(self, params, batch, positions=None, *,
                 last_logit_only: bool = False) -> Tuple[torch.Tensor, Cache]:
-        enc_out = self.encode(params, batch["frames"])
+        enc_out = self.constrain(self.encode(params, batch["frames"]), "enc_out")
         tokens = batch["tokens"]
         b, t = tokens.shape
         if positions is None:

@@ -24,13 +24,20 @@ set converted from the JAX pytree drives both packages in the parity tests.
     set for all superblocks); the recurrent state rides in `Cache.ssm`.
   * ssm: superblocks of ``m_per`` mLSTM blocks and one sLSTM block; no KV
     (`Cache.k` is None), the (mLSTM, sLSTM) states ride in `Cache.ssm`.
+  * ``remat=True`` recomputes each layer body in the backward
+    (`torch.utils.checkpoint`, non-reentrant) where the reference wraps its
+    scan body in ``jax.checkpoint``: the dense layer, the hybrid superblock,
+    the xLSTM superblock (not at decode).  ``constrain(tensor, tag)`` is the
+    reference's sharding-hint hook at the same points; without a mesh it is
+    the identity.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -63,6 +70,18 @@ def _lead(tree) -> int:
 
 def _n_layers(params) -> int:
     return _lead(params["layers"])
+
+
+def _id_constrain(x, _tag):
+    return x
+
+
+def maybe_remat(remat: bool, fn: Callable, *args):
+    """``fn(*args)``, recomputed in the backward when `remat` (the
+    reference's ``jax.checkpoint`` around a scan body)."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 class DefaultAttnImpl:
@@ -130,12 +149,16 @@ class Model(nn.Module):
     parameter tree is an explicit argument of every entry point, as in the
     reference."""
 
-    def __init__(self, cfg: ModelConfig, attn_impl=None, device="cuda"):
+    def __init__(self, cfg: ModelConfig, attn_impl=None,
+                 constrain: Optional[Callable] = None, remat: bool = False,
+                 device="cuda"):
         super().__init__()
         from repro_torch.device import resolve_device
 
         self.cfg = cfg
         self.attn_impl = attn_impl or DefaultAttnImpl()
+        self.constrain = constrain or _id_constrain
+        self.remat = remat
         self.dtype = torch_dtype(cfg.dtype)
         self.device = resolve_device(device)
 
@@ -146,13 +169,13 @@ class Model(nn.Module):
         if self.cfg.frontend == "patch_stub" and "patch_embeds" in batch:
             pe = batch["patch_embeds"].to(self.dtype)
             x = torch.cat([pe, x], dim=1)  # image tokens first
-        return x
+        return self.constrain(x, "act")
 
     def unembed(self, params, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         x = layers.apply_norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
         w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        return layers.lm_head_logits(x, w)
+        return self.constrain(layers.lm_head_logits(x, w), "logits")
 
     # -------------------------------------------------------------- qkv math
     def _qkv(self, p, x, positions):
@@ -169,10 +192,12 @@ class Model(nn.Module):
             cos, sin = layers.rope_cos_sin(positions, d_rot, cfg.rope_theta)
             q = layers.apply_rope(q, cos, sin, d_rot)
             k = layers.apply_rope(k, cos, sin, d_rot)
-        return q, k, v
+        return (self.constrain(q, "q"), self.constrain(k, "kv"),
+                self.constrain(v, "kv"))
 
     def _out_proj(self, p, out):
         b, t = out.shape[0], out.shape[1]
+        out = self.constrain(out, "attn_out")
         return out.reshape(b, t, -1) @ p["wo"].reshape(-1, self.cfg.d_model)
 
     def _attn_block_prefill(self, p, x, positions):
@@ -213,29 +238,44 @@ class Model(nn.Module):
         return y, mo.aux_loss
 
     # ====================================================== dense stack
-    def _dense_stack(self, params, x, positions, *, k_caches=None,
-                     v_caches=None, cache_len=None, decode=False):
-        """Python loop over the stacked layers; returns (x, moe aux loss,
-        (k, v)) with the per-layer KV stacked on a leading [L] axis."""
+    def _dense_layer(self, lp, x, positions, kc=None, vc=None, cache_len=None,
+                     decode=False):
+        """One layer: returns (x, moe aux loss, (k, v))."""
         cfg = self.cfg
+        h = layers.apply_norm(lp["norm1"], x, cfg.norm_kind, cfg.norm_eps)
+        if decode:
+            y, kv = self._attn_block_decode(lp["attn"], h, kc, vc, cache_len)
+        else:
+            y, kv = self._attn_block_prefill(lp["attn"], h, positions)
+        x = self.constrain(x + y, "act")
+        h = layers.apply_norm(lp["norm2"], x, cfg.norm_kind, cfg.norm_eps)
+        y, aux_l = self._ffn_or_moe(lp, h)
+        return self.constrain(x + y, "act"), aux_l, kv
+
+    def _dense_stack(self, params, x, positions, *, k_caches=None,
+                     v_caches=None, cache_len=None, decode=False,
+                     return_kv=True):
+        """Python loop over the stacked layers; returns (x, moe aux loss,
+        (k, v)) with the per-layer KV stacked on a leading [L] axis (None
+        with ``return_kv=False``, the training path's)."""
         ks, vs = [], []
         aux = 0.0
         for li in range(_n_layers(params)):
             lp = layer_params(params["layers"], li)
-            h = layers.apply_norm(lp["norm1"], x, cfg.norm_kind, cfg.norm_eps)
             if decode:
                 kc = k_caches[li] if k_caches is not None else None
                 vc = v_caches[li] if v_caches is not None else None
-                y, (k, v) = self._attn_block_decode(lp["attn"], h, kc, vc, cache_len)
+                x, aux_l, (k, v) = self._dense_layer(lp, x, None, kc, vc,
+                                                     cache_len, decode=True)
             else:
-                y, (k, v) = self._attn_block_prefill(lp["attn"], h, positions)
-            x = x + y
-            h = layers.apply_norm(lp["norm2"], x, cfg.norm_kind, cfg.norm_eps)
-            y, aux_l = self._ffn_or_moe(lp, h)
-            x = x + y
+                x, aux_l, (k, v) = maybe_remat(self.remat, self._dense_layer,
+                                               lp, x, positions)
             aux = aux + aux_l
-            ks.append(k)
-            vs.append(v)
+            if return_kv:
+                ks.append(k)
+                vs.append(v)
+        if not return_kv:
+            return x, aux, None
         return x, aux, (torch.stack(ks), torch.stack(vs))
 
     # ===================================================== hybrid stack
@@ -245,78 +285,103 @@ class Model(nn.Module):
         """zamba2: per superblock, its Mamba2 layers in order, then the
         shared attention + FFN block.  Returns (x, (k, v) stacked over the
         attention applications, SSMState with leaves [n_super, per, ...])."""
-        cfg = self.cfg
-        sn = params["shared_norms"]
-        mls = params["layers"]["mamba_layers"]
         ks, vs, hs, convs = [], [], [], []
         for si in range(_n_layers(params)):
-            sp = layer_params(mls, si)
-            sh, sc = [], []
-            for j in range(_lead(sp)):
-                mp = layer_params(sp, j)
-                h = layers.apply_norm(mp["norm"], x, cfg.norm_kind, cfg.norm_eps)
-                if decode:
-                    st = ssm.SSMState(ssm_states.h[si, j], ssm_states.conv[si, j])
-                    y, st = ssm.mamba2_decode_step(mp["mamba"], h, cfg, st)
-                else:
-                    y, st = self.attn_impl.ssm_scan("mamba", mp["mamba"], h,
-                                                    cfg, None)
-                x = x + y
-                sh.append(st.h)
-                sc.append(st.conv)
-            h = layers.apply_norm(sn["n1"], x, cfg.norm_kind, cfg.norm_eps)
+            sp = layer_params(params["layers"]["mamba_layers"], si)
             if decode:
-                y, (k, v) = self._attn_block_decode(
-                    params["shared_attn"], h, k_caches[si], v_caches[si],
-                    cache_len)
+                x, (k, v), sh, sc = self._hybrid_super(
+                    params, sp, x, None, si=si, ssm_states=ssm_states,
+                    kc=k_caches[si], vc=v_caches[si], cache_len=cache_len,
+                    decode=True)
             else:
-                y, (k, v) = self._attn_block_prefill(params["shared_attn"], h,
-                                                     positions)
-            x = x + y
-            h = layers.apply_norm(sn["n2"], x, cfg.norm_kind, cfg.norm_eps)
-            x = x + layers.apply_ffn(params["shared_ffn"], h, cfg.ffn_kind)
+                x, (k, v), sh, sc = maybe_remat(self.remat, self._hybrid_super,
+                                                params, sp, x, positions)
             ks.append(k)
             vs.append(v)
-            hs.append(torch.stack(sh))
-            convs.append(torch.stack(sc))
+            hs.append(sh)
+            convs.append(sc)
         states = ssm.SSMState(h=torch.stack(hs), conv=torch.stack(convs))
         return x, (torch.stack(ks), torch.stack(vs)), states
+
+    def _hybrid_super(self, params, sp, x, positions, *, si=None,
+                      ssm_states=None, kc=None, vc=None, cache_len=None,
+                      decode=False):
+        """One superblock: its Mamba2 layers in order, then the shared
+        attention + FFN block.  Returns (x, (k, v), h [per, ...], conv
+        [per, ...])."""
+        cfg = self.cfg
+        sn = params["shared_norms"]
+        sh, sc = [], []
+        for j in range(_lead(sp)):
+            mp = layer_params(sp, j)
+            h = layers.apply_norm(mp["norm"], x, cfg.norm_kind, cfg.norm_eps)
+            if decode:
+                st = ssm.SSMState(ssm_states.h[si, j], ssm_states.conv[si, j])
+                y, st = ssm.mamba2_decode_step(mp["mamba"], h, cfg, st)
+            else:
+                y, st = self.attn_impl.ssm_scan("mamba", mp["mamba"], h, cfg,
+                                                None)
+            x = x + y
+            sh.append(st.h)
+            sc.append(st.conv)
+        h = layers.apply_norm(sn["n1"], x, cfg.norm_kind, cfg.norm_eps)
+        if decode:
+            y, kv = self._attn_block_decode(params["shared_attn"], h, kc, vc,
+                                            cache_len)
+        else:
+            y, kv = self._attn_block_prefill(params["shared_attn"], h,
+                                             positions)
+        x = self.constrain(x + y, "act")
+        h = layers.apply_norm(sn["n2"], x, cfg.norm_kind, cfg.norm_eps)
+        x = self.constrain(
+            x + layers.apply_ffn(params["shared_ffn"], h, cfg.ffn_kind), "act")
+        return x, kv, torch.stack(sh), torch.stack(sc)
 
     # ======================================================= xlstm stack
     def _xlstm_stack(self, params, x, *, states=None, decode=False):
         """Per superblock: its mLSTM blocks in order, then its sLSTM block.
         Returns (x, (MLSTMState with leaves [n_super, m_per, B, ...],
         SLSTMState with leaves [n_super, B, ...]))."""
-        cfg = self.cfg
         mls, sls = [], []
         for si in range(_n_layers(params)):
             sp = layer_params(params["layers"], si)
-            ml = sp["mlstm_layers"]
-            msts = []
-            for j in range(_lead(ml)):
-                mp = layer_params(ml, j)
-                h = layers.apply_norm(mp["norm"], x, cfg.norm_kind, cfg.norm_eps)
-                if decode:
-                    st = xlstm.MLSTMState(*(a[si, j] for a in states[0]))
-                    y, st = xlstm.mlstm_block_step(mp["cell"], h, cfg, st)
-                else:
-                    y, st = self.attn_impl.ssm_scan("mlstm", mp["cell"], h, cfg,
-                                                    None)
-                x = x + y
-                msts.append(st)
-            h = layers.apply_norm(sp["slstm"]["norm"], x, cfg.norm_kind,
-                                  cfg.norm_eps)
             if decode:
-                sst = xlstm.SLSTMState(*(a[si] for a in states[1]))
-                y, sst = xlstm.slstm_block_step(sp["slstm"]["cell"], h, cfg, sst)
-            else:
-                y, sst = self.attn_impl.ssm_scan("slstm", sp["slstm"]["cell"], h,
-                                                 cfg, None)
-            x = x + y
-            mls.append(xlstm.MLSTMState(*map(torch.stack, zip(*msts))))
+                x, mst, sst = self._xlstm_super(sp, x, si=si, states=states,
+                                                decode=True)
+            else:  # the reference remats the superblock, never at decode
+                x, mst, sst = maybe_remat(self.remat, self._xlstm_super, sp, x)
+            mls.append(mst)
             sls.append(sst)
         return x, (xlstm.MLSTMState(*map(torch.stack, zip(*mls))),
                    xlstm.SLSTMState(*map(torch.stack, zip(*sls))))
+
+    def _xlstm_super(self, sp, x, *, si=None, states=None, decode=False):
+        """One superblock: its mLSTM blocks, then its sLSTM block.  Returns
+        (x, MLSTMState with leaves [m_per, B, ...], SLSTMState)."""
+        cfg = self.cfg
+        ml = sp["mlstm_layers"]
+        msts = []
+        for j in range(_lead(ml)):
+            mp = layer_params(ml, j)
+            h = layers.apply_norm(mp["norm"], x, cfg.norm_kind, cfg.norm_eps)
+            if decode:
+                st = xlstm.MLSTMState(*(a[si, j] for a in states[0]))
+                y, st = xlstm.mlstm_block_step(mp["cell"], h, cfg, st)
+            else:
+                y, st = self.attn_impl.ssm_scan("mlstm", mp["cell"], h, cfg,
+                                                None)
+            x = x + y
+            msts.append(st)
+        h = layers.apply_norm(sp["slstm"]["norm"], x, cfg.norm_kind,
+                              cfg.norm_eps)
+        if decode:
+            sst = xlstm.SLSTMState(*(a[si] for a in states[1]))
+            y, sst = xlstm.slstm_block_step(sp["slstm"]["cell"], h, cfg, sst)
+        else:
+            y, sst = self.attn_impl.ssm_scan("slstm", sp["slstm"]["cell"], h,
+                                             cfg, None)
+        x = self.constrain(x + y, "act")
+        return x, xlstm.MLSTMState(*map(torch.stack, zip(*msts))), sst
 
     # ============================================================== public
     def hidden(self, params, batch, positions=None) -> Tuple[torch.Tensor, Any]:
@@ -332,8 +397,10 @@ class Model(nn.Module):
         elif family == "ssm":
             x, _ = self._xlstm_stack(params, x)
         else:
-            x, aux, _ = self._dense_stack(params, x, positions)
-        return x, torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+            x, aux, _ = self._dense_stack(params, x, positions, return_kv=False)
+        if not isinstance(aux, torch.Tensor):
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, aux.float()
 
     def forward(self, params, batch, positions=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full forward.  Returns (logits [B,T,V], aux loss)."""

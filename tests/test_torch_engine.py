@@ -84,6 +84,8 @@ def test_port_imports_no_jax_and_no_reference():
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert len(mods) >= 30, mods\n"
         "assert 'repro_torch.launch.mesh' in mods, mods\n"
+        "assert 'repro_torch.launch.steps' in mods, mods\n"
+        "assert 'repro_torch.launch.train' in mods, mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )

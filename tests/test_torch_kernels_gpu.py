@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1, K3, K2, K4, K5) against their plain PyTorch
+"""The port's CUDA kernels (K1, K3, K2, K4 and its backward, K5) against their plain PyTorch
 versions on a CUDA device.  Marked ``gpu``: they skip where no CUDA device exists.
 They import no JAX, so they run on a machine with only PyTorch::
 
@@ -18,7 +18,12 @@ decode cases (long rows, many rows) hold o / l and m to 1e-4: f32 sums over
 up to 64k keys in another order, merged across splits; so does K5 at
 whisper width, and so do K3 and K2 at the serve CLI's width (f32 sums over
 up to ~1.8k keys, carried across a ring of up to 8 steps; the normalized
-ring output against plain K1 likewise).
+ring output against plain K1 likewise).  The K4 backward
+(`csrc/striped_attention_bwd.cu`, fp32 FMAs on either type) against the
+plain backward formula on the same inputs (bf16 ones upcast, with the
+kernel's own o and LSE): f32 within 2e-4 x max|plain| per tensor, bf16
+within 2^-7 x max|plain| (one rounding of the result) with a mean error
+within 1e-3 x max|plain|; the forward's LSE within 1e-4 of the plain one.
 """
 import numpy as np
 import pytest
@@ -30,6 +35,7 @@ from repro_torch.kernels import decode_split as tds  # noqa: E402
 from repro_torch.kernels import flash_decode as tfd  # noqa: E402
 from repro_torch.kernels import paged_flash_decode as tpfd  # noqa: E402
 from repro_torch.kernels import paged_flash_prefill as tpfp  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import striped_attention as tsa  # noqa: E402
 
 ATOL = 2e-5
@@ -644,3 +650,112 @@ def test_unified_chunk_plane_on_card(cuda_device, dtype, window):
         cpu(q), cpu(k), cpu(v), off, cpu(qpos),
         [tuple(map(cpu, s)) for s in shards], window=window)
     _close_tc(got, want, v) if tc else _close(got, want)
+
+
+# ---------------------------------------------------- K4 under a gradient
+
+def _close_bwd(got, want, bf16):
+    """The K4 backward against the plain one, per tensor: f32 within 2e-4 x
+    max|plain| (f32 sums over the keys or queries in another order); a bf16
+    result is the f32 one rounded once (2^-7 x max|plain|) and its mean
+    error stays within 1e-3 x max|plain|."""
+    got, want = got.float(), want.float()
+    scale = want.abs().max().item()
+    err = (got - want).abs()
+    assert not torch.isnan(got).any()
+    if bf16:
+        assert err.max().item() <= 2.0 ** -7 * scale, (err.max().item(), scale)
+        assert err.mean().item() <= 1e-3 * scale, (err.mean().item(), scale)
+    else:
+        assert err.max().item() <= 2e-4 * scale, (err.max().item(), scale)
+
+
+# (B, Sq, Sk, H, KVH, D, causal, window, softcap, positions)
+K4_BWD_CASES = [
+    (2, 77, 77, 4, 2, 32, True, None, None, "contiguous"),
+    (1, 130, 130, 32, 2, 128, True, None, None, "contiguous"),  # GQA 16
+    (2, 100, 100, 8, 8, 80, True, 40, None, "contiguous"),
+    (2, 45, 70, 4, 4, 64, False, None, 5.0, "contiguous"),
+    (1, 64, 64, 4, 1, 256, True, 30, 20.0, "striped"),
+    (2, 50, 61, 4, 2, 16, True, 20, None, "unsorted"),
+    (1, 40, 40, 2, 2, 32, True, None, None, "empty rows"),
+]
+
+
+def _k4_bwd_inputs(case, dt, dev, seed=0):
+    b, sq, sk, h, kvh, d, causal, window, softcap, kind = case
+    rng = np.random.default_rng(seed)
+    if kind == "striped":
+        qp, kp = np.arange(sq) * 4 + 3, np.arange(sk) * 4 + 1
+    elif kind == "unsorted":
+        qp, kp = rng.permutation(80)[:sq], rng.permutation(80)[:sk]
+    elif kind == "empty rows":
+        qp, kp = np.arange(sq), np.arange(sk) + 9
+    else:
+        qp, kp = np.arange(sq) + (sk - sq), np.arange(sk)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev, dt)
+
+    q, k, v, do = rand(b, sq, h, d), rand(b, sk, kvh, d), rand(b, sk, kvh, d), \
+        rand(b, sq, h, d)
+    pos = [torch.as_tensor(x, dtype=torch.int32, device=dev) for x in (qp, kp)]
+    return q, k, v, do, pos, dict(causal=causal, window=window, softcap=softcap)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", K4_BWD_CASES, ids=lambda c: f"{c[9]}-d{c[5]}-h{c[3]}/{c[4]}")
+def test_k4_backward_matches_plain_on_card(cuda_device, dtype, case):
+    """The forward's LSE (both routes) against the plain LSE, and the
+    backward kernel against the plain backward formula on the same inputs
+    (the f32 upcast of bf16 ones, with the kernel's o and lse)."""
+    dt = getattr(torch, dtype)
+    q, k, v, do, (qp, kp), kw = _k4_bwd_inputs(case, dt, cuda_device)
+    o, lse = tsa._launch(q, k, v, qp, kp, lse=True, **kw)
+    want_o, want_lse = tref.striped_flash_attention_ref_lse(
+        q.float(), k.float(), v.float(), qp, kp, **kw)
+    fin = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(lse), fin) and (lse[~fin] > 0).all()
+    assert (lse[fin] - want_lse[fin]).abs().max().item() <= 1e-4
+    got = tsa._launch_bwd(q, k, v, o, do, lse, qp, kp, **kw)
+    want = tref.striped_flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                                o.float(), do.float(), lse, qp,
+                                                kp, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == dt
+        _close_bwd(g, w, dt == torch.bfloat16)
+    if case[9] == "empty rows":  # queries before every key: exact zeros
+        assert (got[0][:, :9] == 0).all() and (o[:, :9] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", K4_BWD_CASES[:4], ids=lambda c: f"d{c[5]}-h{c[3]}/{c[4]}")
+def test_k4_function_grads_match_autograd_on_card(cuda_device, case):
+    """On CUDA tensors under grad, K4's output has the `Function`'s
+    grad_fn, its backward launches the kernel once, and its gradients equal
+    plain autograd through the plain version (f32)."""
+    q, k, v, do, (qp, kp), kw = _k4_bwd_inputs(case, torch.float32, cuda_device, 1)
+    q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+    before = tsa.launch_counts["striped_flash_attention_bwd"]
+    out = tsa.striped_flash_attention(q, k, v, qp, kp, **kw)
+    assert type(out.grad_fn).__name__ == "StripedFlashAttentionFnBackward"
+    got = torch.autograd.grad(out, (q, k, v), do.transpose(1, 2).contiguous()
+                              .transpose(1, 2))  # a strided gradient
+    assert tsa.launch_counts["striped_flash_attention_bwd"] == before + 1
+    ref_out = tsa.striped_flash_attention_plain(q, k, v, qp, kp, **kw)
+    want = torch.autograd.grad(ref_out, (q, k, v), do)
+    for g, w in zip(got, want):
+        _close_bwd(g, w, False)
+
+
+@pytest.mark.gpu
+def test_serving_kernels_refuse_grad_on_card(cuda_device):
+    q, k, v = (torch.randn(16, 2, 16, device=cuda_device) for _ in range(3))
+    off = torch.tensor([0, 16], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tpfp.packed_flash_prefill(q.requires_grad_(True), k, v, off)
+    qd = torch.randn(2, 1, 2, 16, device=cuda_device, requires_grad=True)
+    kd = torch.randn(2, 8, 2, 16, device=cuda_device)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tfd.flash_decode_partial(qd, kd, kd, torch.tensor([3, 8], device=cuda_device))
