@@ -118,9 +118,14 @@ LSE at lwm-7b (B 2, S 4096, causal, bf16 and f32), mixtral (S 6144, window
 and the train CLI's reduced width (D 32, f32), plus softcap, non-causal,
 striped, unsorted and empty-row variants (f32 within 2e-4 x max|plain|;
 bf16 within 2^-7 x max|plain|, mean within 1e-3 x max|plain|; LSE within
-1e-4; empty rows exact zeros), and time it at lwm-7b and mixtral width
-beside its plain version, its bound and SDPA's backward (the "K4 bwd"
-row).  They also hold K4 and K5 at whisper-tiny's width (H = KVH = 6, D =
+1e-4; empty rows exact zeros; every bf16 case twice, bitwise equal), and
+time it at lwm-7b and mixtral width beside its plain version, its bound
+and SDPA's backward (the "K4 bwd" row), with SDPA's own error against the
+plain formula under the same measure printed as a witness of bf16
+rounding.  Its bf16 route runs on wgmma: the phase prints the backward's
+``-Xptxas -v`` lines and HGMMA counts from ``cuobjdump -sass``, and fails
+if a tensor-core kernel of it has no HGMMA, spills or is serialized by
+ptxas (info C7513), or an f32 one has HGMMA.  They also hold K4 and K5 at whisper-tiny's width (H = KVH = 6, D =
 64, q_per_kv 1; K4: B = 4, causal, S 448 and 1500, bf16 and f32; K5: B =
 4 over 480 keys, 479 valid in every row and ragged rows), timed as device
 time from CUDA graphs, beside SDPA ``is_causal`` and the flash call
@@ -172,7 +177,8 @@ TOL_MEAN = 1e-3  # mean abs error of the normalized output, tensor-core route
 # an NVIDIA H100 80GB HBM3 at 700 W), printed beside the new ones in the text
 # lines only: the JSON table holds what this run measured
 PREV_MS = {"K1": 6.711, "K3": 0.861, "K4": 15.889, "K4 zamba2": 6.971,
-           "K2": 2.541, "K5": 0.8049, "K5 zamba2": 1.536}
+           "K2": 2.541, "K5": 0.8049, "K5 zamba2": 1.536,
+           "K4 bwd lwm-7b B=2 S=4096": 78.63, "K4 bwd mixtral S=6144 window=4096": 77.86}
 COLD_BYTES = 64 * 2**20  # K / V copies a timed K5 call rotates over: > L2 (50 MB)
 
 # ------------------------------------------------------------------ helpers
@@ -334,6 +340,43 @@ def _short_kernel_name(mangled):
     return name
 
 
+def _ptxas_kernels(report):
+    """{kernel: (registers line, spill line)} of one ``-Xptxas -v`` report,
+    and its lines that say ptxas serialized wgmmas (info C7513)."""
+    kernels, serialized, entry, spill = {}, [], None, ""
+    for line in report.splitlines():
+        if "C7513" in line:
+            serialized.append(line.strip())
+        elif "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "spill" in line:
+            spill = line.split(":")[-1].strip()
+        elif "Used" in line and entry:
+            kernels[_short_kernel_name(entry)] = (line.split(":")[-1].strip(), spill)
+            entry = None
+    return kernels, serialized
+
+
+def _sass_counts(lib, opcode):
+    """{kernel: number of `opcode` instructions} in a built library's SASS
+    (``cuobjdump -sass``); None where cuobjdump is missing."""
+    import shutil
+
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(exe).exists():
+        return None
+    out = subprocess.run([exe, "-sass", str(lib)], capture_output=True, text=True,
+                         check=True).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = _short_kernel_name(line.split("Function :")[1].strip())
+            counts[fn] = 0
+        elif fn is not None and opcode in line:
+            counts[fn] += 1
+    return counts
+
+
 def phase_build():
     from repro_torch.kernels import _build
 
@@ -342,16 +385,11 @@ def phase_build():
     print(f"[build] {len(reports)} kernel libraries for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, rep in reports.items():  # one line per kernel: registers, spills
-        entry, spill = None, ""
-        for line in rep.splitlines():
-            if "Compiling entry function" in line:
-                entry = line.split("'")[1]
-            elif "spill" in line:
-                spill = line.split(":")[-1].strip()
-            elif "Used" in line and entry:
-                used = line.split(":")[-1].strip()
-                print(f"[ptxas {name}] {_short_kernel_name(entry)}: {used}; {spill}")
-                entry = None
+        kernels, serialized = _ptxas_kernels(rep)
+        for kern, (used, spill) in kernels.items():
+            print(f"[ptxas {name}] {kern}: {used}; {spill}")
+        for line in serialized:
+            print(f"[ptxas {name}] {line}")
 
 
 def phase_kernels(rec, card):
@@ -2156,9 +2194,9 @@ def _plain_lse(q, k, v, qp, kp, kw, rows):
         for i in range(0, q.shape[1], rows)], dim=2)
 
 
-def _check_bwd(name, got, want, log, bf16):
+def _check_bwd(name, got, want, log, bf16, gate=True):
     """Hold (dq, dk, dv) against the plain backward per tensor; returns the
-    largest max abs error."""
+    largest max abs error.  ``gate=False`` only logs (a witness)."""
     worst = 0.0
     for g, w, t in zip(got, want, ("dq", "dk", "dv")):
         g, w = g.float(), w.float()
@@ -2172,12 +2210,42 @@ def _check_bwd(name, got, want, log, bf16):
             ok = ok and mean <= TOL_BWD_MEAN * scale
             note += f"; mean {mean:.3e}, tol {TOL_BWD_MEAN * scale:.3e}"
         log.append(f"  K4 bwd {name} {t}: {note})")
-        if not ok:
+        if gate and not ok:
             print("\n".join(log))
             raise AssertionError(f"K4 bwd {name} {t}: kernel disagrees with its "
                                  "plain version")
         worst = max(worst, err)
     return worst
+
+
+def _bwd_build_report(log):
+    """The K4 backward's ``-Xptxas -v`` lines and HGMMA counts: every
+    tensor-core kernel (``*_tc_kernel``, the bf16 route) has HGMMA, no
+    spills and no wgmma serialized by ptxas; the f32 kernels have none."""
+    from repro_torch.kernels import _build
+
+    name = "striped_attention_bwd"
+    bad = []
+    report = _build.ptxas_reports.get(name)
+    if report is not None:  # built in this process
+        kernels, serialized = _ptxas_kernels(report)
+        for kern, (used, spill) in kernels.items():
+            log.append(f"  [ptxas {name}] {kern}: {used}; {spill}")
+            if "_tc_" in kern and not ("0 bytes spill stores" in spill
+                                       and "0 bytes spill loads" in spill):
+                bad.append(f"{kern} spills")
+        log.extend(f"  [ptxas {name}] {line}" for line in serialized)
+        bad.extend(serialized)
+    hgmma = _sass_counts(_build._lib_path(name), "HGMMA")
+    if hgmma is None:
+        log.append("  [sass] cuobjdump not found: HGMMA not counted")
+    else:
+        log.append("  [sass] HGMMA instructions per kernel: "
+                   + ", ".join(f"{k} {n}" for k, n in sorted(hgmma.items())))
+        bad.extend(f"{k}: {n} HGMMA" for k, n in hgmma.items() if (n > 0) != ("_tc_" in k))
+    if bad:
+        print("\n".join(log))
+        raise AssertionError(f"K4 backward build: {bad}")
 
 
 def phase_k4_backward(rec, card):
@@ -2195,8 +2263,10 @@ def phase_k4_backward(rec, card):
     gen = torch.Generator(device=dev).manual_seed(2)
     rng = np.random.default_rng(2)
     log = ["[check] K4 backward vs the plain backward formula (TF32 off; bf16 "
-           "cases against the plain formula on the f32 upcast of the same inputs, "
-           "with the kernel's own o and LSE)"]
+           "cases, on wgmma, against the plain formula on the f32 upcast of the "
+           "same inputs, with the kernel's own o and LSE; every bf16 case run "
+           "twice and held bitwise equal)"]
+    _bwd_build_report(log)
     bf16, f32 = torch.bfloat16, torch.float32
     ar = np.arange
     # (tag, B, Sq, Sk, H, KVH, D, dtype, causal, window, softcap, positions)
@@ -2254,8 +2324,13 @@ def phase_k4_backward(rec, card):
         if tag.startswith("empty rows"):  # queries before every key
             assert (got[0][:, :100] == 0).all() and (o[:, :100] == 0).all(), tag
             log.append(f"  K4 bwd {tag}: the 100 empty rows' o and dq are exact zeros")
-        del want
+        if dt == bf16:  # no atomics: a second call is bitwise equal
+            again = sa._launch_bwd(q, k, v, o, do, lse, qpd, kpd, **kw)
+            assert all(torch.equal(x, y) for x, y in zip(got, again)), tag
+            log.append(f"  K4 bwd {tag}: a second call is bitwise equal")
+            del again
         if tag not in ("lwm-7b B=2 S=4096", "mixtral S=6144 window=4096"):
+            del want
             continue
         pairs = _attended_pairs(qp, kp, causal, window) * b
         flops = 2 * 5 * d * pairs * h
@@ -2276,19 +2351,29 @@ def phase_k4_backward(rec, card):
             sdpa_kw = dict(attn_mask=(dd >= 0) & (dd < window))
         out4 = F.scaled_dot_product_attention(q4, k4, v4, **sdpa_kw)
         do4 = do.transpose(1, 2).contiguous()
+        # witness: SDPA's own bf16 gradients (its o and LSE) under the same
+        # measure, GQA folded back onto the KV heads (printed, not a gate)
+        lib = torch.autograd.grad(out4, (q4, k4, v4), do4, retain_graph=True)
+        lib = (lib[0].transpose(1, 2),
+               *(x.transpose(1, 2).unflatten(2, (kvh, h // kvh)).float().sum(3)
+                 for x in lib[1:]))
+        _check_bwd(f"{tag} SDPA witness", lib, want, log, True, gate=False)
+        del lib, want
         lib_ms = _time_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
                                                       retain_graph=True), 3, 1)
         bound = max(flops / PEAK_BF16, nbytes / HBM_BPS) * 1e3
         by = "operations" if flops / PEAK_BF16 > nbytes / HBM_BPS else "bytes"
         timed[tag] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                           library_ms=lib_ms)
-        print(f"[time {card}] K4 bwd {tag}: kernel {ms:.3f} ms, {_rates(flops, ms, bound)}, "
-              f"plain {plain_ms:.3f} ms, sdpa backward {lib_ms:.3f} ms, bound "
-              f"{bound:.4f} ms ({by}; {flops / 1e9:.1f} GFLOP over {pairs} pairs, "
-              f"{nbytes / 1e6:.1f} MB)")
+        print(f"[time {card}] K4 bwd {tag}: kernel {ms:.3f} ms (bf16 on wgmma; "
+              f"previous design, earlier run: {PREV_MS['K4 bwd ' + tag]} ms), "
+              f"{_rates(flops, ms, bound)} (5 products), plain {plain_ms:.3f} ms, "
+              f"sdpa backward {lib_ms:.3f} ms, bound {bound:.4f} ms ({by}; "
+              f"{flops / 1e9:.1f} GFLOP over {pairs} pairs, {nbytes / 1e6:.1f} MB)")
         del q4, k4, v4, out4, do4
     rec["K4 bwd"] = dict(
         name="striped_flash_attention_bwd", route="cuda",
+        body="bf16: wgmma (dk/dv and dq grids); f32: fp32 FMAs",
         source="src/repro_torch/csrc/striped_attention_bwd.cu",
         replaces="src/repro/kernels/striped_attention.py:102",
         launches=0, max_abs_err=worst, **timed["lwm-7b B=2 S=4096"],

@@ -105,8 +105,11 @@ def _launch(q, k, v, q_pos, k_pos, *, causal, window, softcap, lse=False):
 
 def _launch_bwd(q, k, v, o, do, lse, q_pos, k_pos, *, causal, window,
                 softcap):
-    """One backward call (the delta pass, the dk / dv grid and the dq grid);
-    returns (dq, dk, dv) in the operands' dtype."""
+    """One backward call (the delta pass, the dk / dv grid and the dq grid,
+    no atomics: two calls on the same inputs are bitwise equal); returns
+    (dq, dk, dv) in the operands' dtype.  bf16 operands run every product on
+    the tensor cores (wgmma; P and dS rounded to bf16 before their
+    products), f32 operands the fp32-FMA bodies."""
     from repro_torch.kernels import _build
 
     _check_operands(q, k, v, window)

@@ -508,6 +508,92 @@ def test_tc_tolerance_catches_a_wrong_kernel(d, fault):
     assert not _tc_within_bound(got, want, v)
 
 
+# ------------------------------------------- the bf16 K4 backward's numerics
+
+
+def _bwd_tc_case(d, seed, qpk, softcap, s=300):
+    """One KV head with ``qpk`` q heads: bf16-valued q, k, v, do, the plain
+    forward's o (rounded to bf16, as the kernel writes it) and its LSE."""
+    rng = np.random.default_rng(seed)
+
+    def bf(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)) \
+            .bfloat16().float()
+
+    q, do, k, v = bf(1, s, qpk, d), bf(1, s, qpk, d), bf(1, s, 1, d), bf(1, s, 1, d)
+    pos = torch.arange(s)
+    kw = dict(causal=True, window=None, softcap=softcap)
+    o, lse = tref.striped_flash_attention_ref_lse(q, k, v, pos, pos, **kw)
+    return (q, k, v, o.bfloat16().float(), do, lse, pos, pos), kw
+
+
+def _bwd_tc_emulation(q, k, v, o, do, lse, q_pos, k_pos, *, softcap, causal,
+                      window, drop_q_tile=None, shift=0):
+    """Plain-torch emulation of the bf16 tensor-core numerics of the K4
+    backward (`csrc/striped_attention_bwd.cu`) for one KV head: f32 S = Q K^T
+    and dP = dO V^T of bf16 operands, P and dS rounded to bf16 before dV +=
+    P^T dO, dK += dS^T Q and dQ += dS K, each gradient rounded to bf16 once.
+    `drop_q_tile` leaves one q tile (64 / q_per_kv tokens) out of the dk /
+    dv sums; `shift` moves the causal diagonal by that many keys."""
+    g, d = q.shape[2], q.shape[3]
+    scale = 1.0 / math.sqrt(d)
+    qf, dof, of = (x[0].transpose(0, 1) for x in (q, do, o))  # [g, s, d]
+    kf, vf = k[0, :, 0], v[0, :, 0]
+    x = qf @ kf.T * scale
+    dt = torch.ones(())
+    if softcap is not None:
+        th = torch.tanh(x / softcap)
+        x, dt = softcap * th, 1 - th * th
+    mask = q_pos[:, None] + shift >= k_pos[None, :]
+    p = torch.where(mask, torch.exp(x - lse[0][..., None]), torch.zeros(()))
+    ds = p * (dof @ vf.T - (dof * of).sum(-1, keepdim=True)) * dt
+    pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
+    keep = torch.ones(g, q.shape[1], 1)
+    if drop_q_tile is not None:
+        tpt = 64 // g
+        keep[:, drop_q_tile * tpt:(drop_q_tile + 1) * tpt] = 0
+    dv = (pb * keep).flatten(0, 1).T @ dof.flatten(0, 1)
+    dk = scale * (dsb * keep).flatten(0, 1).T @ qf.flatten(0, 1)
+    dq = scale * dsb @ kf
+    return tuple(t.bfloat16().float() for t in
+                 (dq.transpose(0, 1)[None], dk[None, :, None], dv[None, :, None]))
+
+
+def _bwd_within_tolerance(got, want):
+    """The card's bf16 bound of the K4 backward, per tensor: max abs err <=
+    2^-7 max|plain|, mean <= 1e-3 max|plain|."""
+    for g, w in zip(got, want):
+        scale, err = w.abs().max().item(), (g - w).abs()
+        if err.max().item() > 2.0 ** -7 * scale or err.mean().item() > 1e-3 * scale:
+            return False
+    return True
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("d,qpk,softcap", [(64, 1, None), (128, 4, None),
+                                           (80, 12, 30.0), (128, 16, None)])
+def test_bwd_tc_tolerance_holds_for_bf16_rounding(d, qpk, softcap, seed):
+    """The K4 backward's bf16 bound on the card holds for the emulated
+    tensor-core numerics (P and dS rounded to bf16 before their products, as
+    SDPA's flash backward also does), against the plain backward formula on
+    the same inputs."""
+    args, kw = _bwd_tc_case(d, seed, qpk, softcap)
+    want = tref.striped_flash_attention_bwd_ref(*args, **kw)
+    assert _bwd_within_tolerance(_bwd_tc_emulation(*args, **kw), want)
+
+
+@pytest.mark.parametrize("fault", ["drop_q_tile", "shift_diagonal"])
+@pytest.mark.parametrize("d,qpk", [(64, 1), (128, 4)])
+def test_bwd_tc_tolerance_catches_a_wrong_kernel(d, qpk, fault):
+    """The same bound rejects an emulation that leaves one q tile out of
+    dk / dv or moves the causal diagonal by one key."""
+    args, kw = _bwd_tc_case(d, 0, qpk, None)
+    want = tref.striped_flash_attention_bwd_ref(*args, **kw)
+    fault_kw = dict(drop_q_tile=2) if fault == "drop_q_tile" else dict(shift=1)
+    assert not _bwd_within_tolerance(_bwd_tc_emulation(*args, **kw, **fault_kw),
+                                     want)
+
+
 # ------------------------------------------- the split-K decode core (K2, K5)
 #
 # csrc/decode_splitk.cuh cuts each row's valid keys [lo, hi) into the

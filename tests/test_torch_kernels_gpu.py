@@ -679,6 +679,15 @@ K4_BWD_CASES = [
     (1, 64, 64, 4, 1, 256, True, 30, 20.0, "striped"),
     (2, 50, 61, 4, 2, 16, True, 20, None, "unsorted"),
     (1, 40, 40, 2, 2, 32, True, None, None, "empty rows"),
+    # the bf16 route's tile edges: 64-row q tiles of (token, q head) rows,
+    # 128-key dk / dv CTAs (64 at D 256, two column halves), 64-key tiles
+    (2, 200, 333, 8, 8, 128, True, None, None, "contiguous"),  # q_per_kv 1
+    (1, 150, 211, 16, 4, 128, True, 120, None, "contiguous"),  # q_per_kv 4
+    (1, 70, 190, 16, 1, 128, False, None, None, "contiguous"),  # q_per_kv 16
+    (1, 100, 100, 24, 2, 80, True, 37, 30.0, "contiguous"),  # 12: heads straddle tiles
+    (2, 130, 150, 4, 2, 256, True, 50, 20.0, "contiguous"),
+    (1, 300, 300, 8, 2, 128, True, 100, None, "striped"),
+    (2, 150, 200, 6, 2, 64, True, 90, None, "unsorted"),  # 3: heads straddle tiles
 ]
 
 
@@ -688,7 +697,8 @@ def _k4_bwd_inputs(case, dt, dev, seed=0):
     if kind == "striped":
         qp, kp = np.arange(sq) * 4 + 3, np.arange(sk) * 4 + 1
     elif kind == "unsorted":
-        qp, kp = rng.permutation(80)[:sq], rng.permutation(80)[:sk]
+        n = max(80, sq, sk)
+        qp, kp = rng.permutation(n)[:sq], rng.permutation(n)[:sk]
     elif kind == "empty rows":
         qp, kp = np.arange(sq), np.arange(sk) + 9
     else:
@@ -727,6 +737,19 @@ def test_k4_backward_matches_plain_on_card(cuda_device, dtype, case):
         _close_bwd(g, w, dt == torch.bfloat16)
     if case[9] == "empty rows":  # queries before every key: exact zeros
         assert (got[0][:, :9] == 0).all() and (o[:, :9] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", K4_BWD_CASES, ids=lambda c: f"{c[9]}-d{c[5]}-h{c[3]}/{c[4]}")
+def test_k4_backward_is_deterministic_on_card(cuda_device, case):
+    """The backward has no atomics: two calls on the same bf16 inputs give
+    bitwise-equal (dq, dk, dv)."""
+    q, k, v, do, (qp, kp), kw = _k4_bwd_inputs(case, torch.bfloat16, cuda_device, 2)
+    o, lse = tsa._launch(q, k, v, qp, kp, lse=True, **kw)
+    first = tsa._launch_bwd(q, k, v, o, do, lse, qp, kp, **kw)
+    second = tsa._launch_bwd(q, k, v, o, do, lse, qp, kp, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
