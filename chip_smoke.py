@@ -109,9 +109,27 @@ Phases (each one fails the run with a non-zero exit; none is caught):
      layers, f32, B 1 x S 2048: one step through the kernels against the
      same step through the plain attention — loss within 1e-5 relative,
      every leaf of the new m within 1e-4 x max|leaf|, new params within
-     1e-6 beyond lr x the difference of the two AdamW directions.
+     1e-6 beyond lr x the difference of the two AdamW directions;
+  17. the mesh-aware steps (`launch.steps` on a `DeviceMesh`: DTensor
+     parameters, inputs and ZeRO-1 moments, `ESPAttnImpl` /
+     `ShardedAttnImpl` through `local_map`) on NCCL at world size 1, mesh
+     (1, 1), after importing `local_map` and `DTensor`: full-width lwm-7b
+     cut to 4 of its 32 layers in bf16 (prefill B 1 x S 8192, 16 decode
+     steps, 2 train steps at B 2 x S 4096) and full-width zamba2-2.7b cut
+     to 2 of its 9 superblocks (prefill B 1 x S 4096, 8 decode steps):
+     tokens equal the ``mesh=None`` steps', caches, parameters and losses
+     within bf16 tolerances, K4 (forward and backward) and K5 launched,
+     K1-K3 not.
 
-Phases 2-3 also hold the K4 backward (csrc/striped_attention_bwd.cu) and
+Phases 2-3 also hold `ops.attention_partial` (K4 with its row LSE as the
+ESP ring step's unnormalized partial) against the plain partial at a
+4-rank ring step of lwm-7b width (S_local 4096, striped positions, rows
+that see no key) and of mixtral width with its 4096-token window, and K5
+at a decode mode-2 shard (lwm-7b width, B 8, a 4096-key shard at
+k_pos_offset 12288, with and without a window), timed beside their bounds,
+their plain versions and the one PyTorch call of the same function (the
+``at_esp_ring_step`` / ``at_esp_decode_shard`` fields of the K4 / K5
+rows).  They also hold the K4 backward (csrc/striped_attention_bwd.cu) and
 the forward's row LSE against the plain backward formula and the plain
 LSE at lwm-7b (B 2, S 4096, causal, bf16 and f32), mixtral (S 6144, window
 4096, GQA 4), glm4 (GQA 16, S 2048), zamba2 (D 80), whisper (D 64, B 4)
@@ -2542,6 +2560,374 @@ COLLECTIVES = ("ring_ppermute", "psum", "pmax", "psum_scatter", "all_gather",
                "decode_partial_home", "host_sync_broadcast")
 
 
+# --------------------------------------- ESP bodies' kernels (phases 2-3)
+
+
+def _plain_partial(q, k, v, qp, kp, causal, window, softcap, rows=1024):
+    """The reference's ring-step partial in plain PyTorch (f32 scores, the
+    dense position mask), in blocks of query rows."""
+    import torch
+
+    from repro_torch.models import attention as A
+
+    parts = [A.partial_attention(q[:, i:i + rows], k, v,
+                                 A.mask_from_positions(qp[i:i + rows], kp,
+                                                       causal=causal, window=window),
+                                 softcap=softcap)
+             for i in range(0, q.shape[1], rows)]
+    return A.Partial(*(torch.cat([p_[j] for p_ in parts], dim=1) for j in range(3)))
+
+
+def phase_esp_kernels(rec, card):
+    """The ESP bodies' kernels at their shapes (phases 2 and 3):
+    `ops.attention_partial` (K4 with its row LSE as an unnormalized
+    partial) at a 4-rank ring step of lwm-7b width (S_local 4096, striped
+    positions, q shard 0 against KV shard 1: its first row sees no key) and
+    of mixtral width with its 4096-token window; K5 at a decode mode-2
+    shard of lwm-7b width (B 8, a 4096-key shard at k_pos_offset 12288 of a
+    16384-token cache), with and without a window.  Each is held against
+    its plain version and timed beside its bound and the one PyTorch call
+    that computes the same function."""
+    import torch
+
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    bf16 = torch.bfloat16
+    log = ["[check] ESP bodies' kernels vs plain versions (TF32 off)"]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    ring = {}
+    n, s_l = 4, 4096
+    for tag, h, kvh, window, r, c in (
+            ("lwm7b_S4096_shard0_vs_1", 32, 32, None, 0, 1),
+            ("mixtral_S4096_shard2_vs_1_window4096", 32, 8, 4096, 2, 1)):
+        d, b = 128, 1
+        q, k, v = randn(b, s_l, h, d), randn(b, s_l, kvh, d), randn(b, s_l, kvh, d)
+        qp_np, kp_np = np.arange(s_l) * n + r, np.arange(s_l) * n + c
+        qp = torch.as_tensor(qp_np, dtype=torch.int32, device=dev)
+        kp = torch.as_tensor(kp_np, dtype=torch.int32, device=dev)
+        kw = dict(causal=True, window=window, softcap=None)
+        got = ops.attention_partial(q, k, v, qp, kp, **kw)
+        want = _plain_partial(q, k, v, qp, kp, True, window, None)
+        empty = want.l == 0
+        assert bool((torch.isinf(got.m) == empty).all() and (got.l[empty] == 0).all()), tag
+        n_empty = int(empty.sum())
+        err = _check(f"attention_partial {tag} (finalized)",
+                     _fin(got.o, got.l).to(bf16), _fin(want.o, want.l), log, v=v)
+        lse_w = want.m + torch.log(want.l)
+        lse_err = (got.m[~empty] - lse_w[~empty]).abs().max().item()
+        log.append(f"  attention_partial {tag}: m vs plain m + log l {lse_err:.3e} "
+                   f"(tol 1e-3); {n_empty} empty (row, head) pairs give m = -inf, l = 0")
+        assert lse_err <= 1e-3, lse_err
+        rec["K4"]["max_abs_err"] = max(rec["K4"]["max_abs_err"], err)
+        pairs = _attended_pairs(qp_np, kp_np, True, window) * b
+        flops = 4 * h * d * pairs
+        bytes_ = (b * s_l * h * d + 2 * b * s_l * kvh * d) * 2 + 2 * s_l * 4 \
+            + b * s_l * h * (d + 2) * 4  # q, k, v, positions; o, m, l in f32
+        ms = _time_ms(lambda: ops.attention_partial(q, k, v, qp, kp, **kw))
+        plain_ms = _time_ms(lambda: _plain_partial(q, k, v, qp, kp, True, window, None),
+                            2, 1)
+        # one PyTorch call with the same function: memory-efficient SDPA with
+        # the mask as an additive bias and its log-sum-exp (o, lse) = the
+        # partial (o, m = lse, l = 1)
+        q4 = q.transpose(1, 2)
+        k4, v4 = (x.repeat_interleave(h // kvh, dim=2).transpose(1, 2) for x in (k, v))
+        dd = qp[:, None] - kp[None, :]
+        ok = dd >= 0
+        if window is not None:
+            ok &= dd < window
+        bias = torch.zeros(ok.shape, dtype=bf16, device=dev).masked_fill(
+            ~ok, float("-inf"))[None, None].expand(b, h, s_l, s_l)
+        lib_name = "aten._scaled_dot_product_efficient_attention(attn_bias, lse)"
+        try:
+            lib_ms = _time_ms(lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+                q4, k4, v4, bias, True), 5, 1)
+        except RuntimeError as e:
+            lib_ms, lib_name = None, f"none ({str(e)[:60]})"
+        bound = max(flops / PEAK_BF16, bytes_ / HBM_BPS) * 1e3
+        by = "operations" if flops / PEAK_BF16 > bytes_ / HBM_BPS else "bytes"
+        ring[tag] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                         library_ms=lib_ms)
+        lib = f"{lib_ms:.3f} ms" if lib_ms is not None else "n/a"
+        print(f"[time {card}] attention_partial (K4 + LSE) {tag}: kernel {ms:.3f} ms, "
+              f"{_rates(flops, ms, bound)}, plain {plain_ms:.3f} ms, {lib_name} {lib}, "
+              f"bound {bound:.4f} ms ({by}; {flops / 1e9:.1f} GFLOP over {pairs} pairs, "
+              f"{bytes_ / 1e6:.1f} MB)")
+        del q4, k4, v4, bias, dd, ok
+    rec["K4"]["at_esp_ring_step"] = ring
+
+    shard = {}
+    b, h, kvh, d, s, off, total = 8, 32, 32, 128, 4096, 12288, 16384
+    q = randn(b, 1, h, d)
+    k, v = randn(b, s, kvh, d), randn(b, s, kvh, d)
+    lens = [total] * b
+    ln = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+    for tag, window in (("lwm7b_B8_shard4096_at12288", None),
+                        ("lwm7b_B8_shard4096_at12288_window4096", 4096)):
+        kw = dict(k_pos_offset=off, window=window, softcap=None)
+        err = _check(f"K5 mode-2 shard {tag}", fd.flash_decode_partial(q, k, v, ln, **kw),
+                     fd.flash_decode_partial_plain(q, k, v, ln, **kw), log)
+        rec["K5"]["max_abs_err"] = max(rec["K5"]["max_abs_err"], err)
+        n_valid = _valid_keys(lens, s, off, window)
+        nbytes = (2 * n_valid * kvh * d * 2 + b * h * d * 2 + b * h * (d + 2) * 4 + b * 4)
+        flops = 4 * h * d * n_valid
+        n_cp = max(2, -(-COLD_BYTES // (k.nbytes + v.nbytes)))
+        kvs = [(k, v)] + [(k.clone(), v.clone()) for _ in range(n_cp - 1)]
+        ms, how = _device_ms(lambda i: fd.flash_decode_partial(q, *kvs[i % n_cp], ln, **kw))
+        plain_ms = _time_ms(lambda: fd.flash_decode_partial_plain(q, k, v, ln, **kw), 5)
+        lib_ms, lib_how, lib_name = _k5_flash(q, kvs, ln, s, off, window, log, tag)
+        bound = max(nbytes / HBM_BPS, flops / PEAK_BF16) * 1e3
+        by = "bytes" if nbytes / HBM_BPS >= flops / PEAK_BF16 else "operations"
+        shard[tag] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                          library_ms=lib_ms)
+        print(f"[time {card}] K5 mode-2 shard {tag}: kernel {ms:.4f} ms ({how}, cold L2), "
+              f"{100 * bound / ms:.1f}% of its bound, plain {plain_ms:.4f} ms, "
+              f"{lib_name} {lib_ms:.4f} ms ({lib_how}), bound {bound:.5f} ms ({by}; "
+              f"{n_valid} valid keys, {nbytes / 1e6:.2f} MB)")
+        del kvs
+    rec["K5"]["at_esp_decode_shard"] = shard
+    print("\n".join(log))
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------- phase 17: the mesh-aware model path
+
+
+MESH_LAYERS = 4  # lwm-7b depth in phase 17 (of 32)
+ZAMBA_LAYERS = 12  # zamba2-2.7b depth in phase 17 (2 of its 9 superblocks)
+
+
+def _mesh_decode_loop(step, cache, toks, n_steps, params, place, times):
+    """``n_steps`` greedy decode steps; each step's new KV is written into
+    the (padded) cache at the row's length, as the pool would.  Appends
+    each step's wall (s, device synchronized) to ``times``."""
+    import torch
+
+    out_tokens = []
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = step(place("tokens", toks), {k: place(k, v) for k, v in cache.items()}, params)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        toks = _plain(o["next_token"]).to(torch.int32)
+        out_tokens.append(toks.cpu())
+        ln = cache["length"]
+        if "k" in cache:
+            nk, nv = _plain(o["new_k"]), _plain(o["new_v"])
+            for b in range(toks.shape[0]):
+                cache["k"][:, b, int(ln[b])] = nk[:, b, 0]
+                cache["v"][:, b, int(ln[b])] = nv[:, b, 0]
+        for key in ("ssm_h", "ssm_conv", "xl_c", "xl_n", "xl_m", "sl_c", "sl_n",
+                    "sl_h", "sl_m"):
+            if key in o:
+                cache[key] = _plain(o[key])
+        cache["length"] = _plain(o["length"]).to(torch.int32)
+    return out_tokens
+
+
+def _plain(x):
+    from repro_torch.launch.steps import full_value
+
+    return full_value(x)
+
+
+def _close(tag, got, want, log, rel=2e-2, extra=0.0):
+    """A bf16 model output of the mesh step against the ``mesh=None``
+    step's: within ``rel`` x max|want| + ``extra`` (one card runs the same
+    kernels, so it is near-exact; bf16 rounding bounds what may move)."""
+    got, want = _plain(got).float(), _plain(want).float()
+    err = (got - want).abs().max().item()
+    tol = rel * max(want.abs().max().item(), 1e-6) + extra
+    log.append(f"  {tag}: max abs diff {err:.3e} (tol {tol:.3e})")
+    assert err <= tol, (tag, err, tol)
+
+
+def phase_mesh_model(card, rec):
+    """Phase 17: the mesh-aware steps (`launch.steps` on a `DeviceMesh`:
+    parameters, inputs and optimizer state as DTensors, `ESPAttnImpl` /
+    `ShardedAttnImpl` through `local_map`) on NCCL at world size 1, mesh
+    (1, 1), against the ``mesh=None`` steps: full-width lwm-7b cut to 4 of
+    its 32 layers in bf16 (prefill B 1 x S 8192, 16 decode steps, 2 ZeRO-1
+    train steps at B 2 x S 4096) and full-width zamba2-2.7b cut to 2 of its
+    9 superblocks (prefill B 1 x S 4096, 8 decode steps).  Tokens equal,
+    caches / losses within bf16 tolerances, K4 and K5 launched."""
+    t_ph = time.perf_counter()
+    from torch.distributed.tensor import DTensor  # noqa: F401
+    from torch.distributed.tensor.experimental import local_map  # noqa: F401
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as shlib
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import init_process_group, make_test_mesh
+
+    print(f"[mesh-model] torch {torch.__version__}: DTensor and local_map import")
+    assert init_process_group("cuda") == "nccl" and dist.get_world_size() == 1
+    mesh = make_test_mesh(1, 1, device="cuda")
+    dev = torch.device("cuda")
+    log = [f"[mesh-model] mesh (1, 1) on NCCL vs mesh=None, {card}:"]
+    launches, wall = {}, {}
+
+    def placer(cfg, kind, b, s):
+        ish = steps.input_shardings(cfg, ShapeSpec("smoke", kind, s, b), mesh)
+
+        def place(key, x):
+            spec = ish["tokens"] if key == "tokens" else ish["cache"][key]
+            return shlib.distribute(x, mesh, spec)
+        return place
+
+    def timed(fn):
+        """(result, wall s) of one call, the device synchronized."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def split(ts):
+        """(first call, median of the later calls) in ms."""
+        return 1e3 * ts[0], 1e3 * float(np.median(ts[1:]))
+
+    for arch, layers, s_pre, n_dec in (("lwm-7b", MESH_LAYERS, 8192, 16),
+                                       ("zamba2-2.7b", ZAMBA_LAYERS, 4096, 8)):
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        params = convert.init_params(cfg, torch.Generator(device=dev).manual_seed(17))
+        pp = steps.place_params(cfg, mesh, params)
+        rng = np.random.default_rng(17)
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, s_pre)),
+                                 dtype=torch.int32, device=dev)
+        pos = torch.arange(s_pre, dtype=torch.int32, device=dev)
+        _, ref_pre = steps.make_prefill_step(cfg, None)
+        _, mesh_pre = steps.make_prefill_step(cfg, mesh)
+        _, ref_dec = steps.make_decode_step(cfg, None)
+        _, mesh_dec = steps.make_decode_step(cfg, mesh)
+        ref_t, mesh_t = [], []
+        for _ in range(2):  # the second call of each is the steady state
+            (nt_ref, c_ref), t_ = timed(lambda: ref_pre({"tokens": prompt}, pos, params))
+            ref_t.append(t_)
+        ish = steps.input_shardings(cfg, ShapeSpec("smoke", "prefill", s_pre, 1), mesh)
+        batch = shlib.distribute({"tokens": prompt}, mesh, ish["batch"])
+        positions = shlib.distribute(pos, mesh, ish["positions"])
+        _reset_counts()
+        (nt, c), t_ = timed(lambda: mesh_pre(batch, positions, pp))
+        launches[f"{arch} prefill"] = _kernel_counts()
+        mesh_t.append(t_)
+        mesh_t.append(timed(lambda: mesh_pre(batch, positions, pp))[1])
+        wall[f"{arch} prefill S {s_pre}"] = (ref_t, mesh_t)
+        assert torch.equal(_plain(nt).cpu(), nt_ref.cpu()), (arch, nt, nt_ref)
+        if c_ref.k is not None:
+            _close(f"{arch} prefill cache k", c.k, c_ref.k, log)
+            _close(f"{arch} prefill cache v", c.v, c_ref.v, log)
+        if cfg.family == "hybrid":
+            _close(f"{arch} prefill ssm h", c.ssm.h, c_ref.ssm.h, log)
+
+        def dcache(cc):
+            pad = torch.zeros((cc.k.shape[0], 1, s_pre + n_dec) + tuple(cc.k.shape[3:]),
+                              dtype=cc.k.dtype, device=dev)
+            k, v = pad.clone(), pad.clone()
+            k[:, :, :s_pre], v[:, :, :s_pre] = _plain(cc.k), _plain(cc.v)
+            out = {"k": k, "v": v, "length": torch.full((1,), s_pre, dtype=torch.int32,
+                                                        device=dev)}
+            if cfg.family == "hybrid":
+                out["ssm_h"], out["ssm_conv"] = _plain(cc.ssm.h), _plain(cc.ssm.conv)
+            return out
+
+        first = nt_ref.to(torch.int32)
+        ref_t, mesh_t = [], []
+        ref_toks = _mesh_decode_loop(ref_dec, dcache(c_ref), first, n_dec, params,
+                                     lambda _k, x: x, ref_t)
+        _reset_counts()
+        mesh_toks = _mesh_decode_loop(mesh_dec, dcache(c), first, n_dec, pp,
+                                      placer(cfg, "decode", 1, s_pre + n_dec), mesh_t)
+        launches[f"{arch} decode"] = _kernel_counts()
+        wall[f"{arch} decode step"] = (ref_t, mesh_t)
+        assert all(torch.equal(a, b) for a, b in zip(mesh_toks, ref_toks)), \
+            (arch, mesh_toks, ref_toks)
+        log.append(f"  {arch} ({layers} layers, bf16): prefill S {s_pre} token and "
+                   f"{n_dec} decode tokens equal the mesh=None steps' "
+                   f"({[int(t_[0]) for t_ in mesh_toks]})")
+        del params, pp, c, c_ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ---- 2 ZeRO-1 train steps, lwm-7b width, 4 layers, B 2 x S 4096
+    cfg = dataclasses.replace(get_config("lwm-7b"), n_layers=MESH_LAYERS)
+    params = convert.init_params(cfg, torch.Generator(device=dev).manual_seed(18))
+    rng = np.random.default_rng(18)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 4096)), dtype=torch.int32,
+                           device=dev)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    _, ref_step = steps.make_train_step(cfg, None, loss_chunk=1024, remat=True)
+    _, mesh_step = steps.make_train_step(cfg, mesh, loss_chunk=1024, remat=True)
+    p_ref, o_ref = params, steps.init_opt_state(params)
+    ref_losses, ref_t = [], []
+    for _ in range(2):
+        (p_ref, o_ref, met), t_ = timed(lambda: ref_step(p_ref, o_ref, batch))
+        ref_losses.append(float(met["loss"]))
+        ref_t.append(t_)
+    pp = steps.place_params(cfg, mesh, params, train=True)
+    oo = steps.place_opt_state(cfg, mesh, steps.init_opt_state(params))
+    ish = steps.input_shardings(cfg, ShapeSpec("smoke", "train", 4096, 2), mesh)
+    bt = shlib.distribute(batch, mesh, ish["batch"])
+    _reset_counts()
+    losses, mesh_t = [], []
+    for _ in range(2):
+        (pp, oo, met), t_ = timed(lambda: mesh_step(pp, oo, bt))
+        losses.append(float(met["loss"]))
+        mesh_t.append(t_)
+    launches["lwm-7b train"] = _kernel_counts()
+    wall["lwm-7b train step B 2 x S 4096"] = (ref_t, mesh_t)
+    for a, b in zip(losses, ref_losses):
+        assert abs(a - b) <= 1e-3 * abs(b), (losses, ref_losses)
+    # where g ~ 0 the two AdamW directions may take opposite signs (each
+    # step moves a parameter by up to lr (1 + wd) either way), and bf16
+    # rounds every new parameter: 2 steps x 2 lr plus two bf16 steps
+    for i, (a, b) in enumerate(zip(steps.tree_leaves(pp), steps.tree_leaves(p_ref))):
+        _close(f"lwm-7b train param leaf {i}", a, b, log, rel=2.0 ** -6,
+               extra=2 * 2 * 3e-4 * 1.01)
+    log.append(f"  lwm-7b train (ZeRO-1 moments over data, 2 steps): losses "
+               f"{losses} vs mesh=None {ref_losses}")
+    m_leaf = steps.tree_leaves(oo["m"])[0]
+    log.append(f"  moment placements {m_leaf.placements} (a DTensor: "
+               f"{isinstance(m_leaf, DTensor)})")
+    del params, pp, oo, p_ref, o_ref
+    print("\n".join(log))
+    for tag, cnt in launches.items():
+        print(f"[mesh-model] {tag} (mesh (1, 1)): launches {cnt}")
+    for tag, (ref_t, mesh_t) in wall.items():
+        r1, r2 = split(ref_t)
+        m1, m2 = split(mesh_t)
+        print(f"[time {card}] phase 17 {tag} (host clock, device synchronized; first "
+              f"call / median of the later {len(mesh_t) - 1}): mesh=None {r1:.1f} / "
+              f"{r2:.1f} ms, mesh (1, 1) {m1:.1f} / {m2:.1f} ms ({m2 / r2:.2f}x "
+              "steady)")
+    k4 = sum(c.get("striped_flash_attention", 0) for c in launches.values())
+    k4b = launches["lwm-7b train"].get("striped_flash_attention_bwd", 0)
+    k5 = sum(c.get("flash_decode_partial", 0) for c in launches.values())
+    assert k4 > 0 and k5 > 0 and k4b > 0, launches
+    for c in launches.values():
+        _expect_launches(c, [], ["packed_flash_prefill", "packed_flash_prefill_ring_chunk",
+                                 "paged_flash_decode_partial"])
+    rec["K4"]["launches_by_path"]["mesh-aware steps (phase 17)"] = k4
+    rec["K4 bwd"]["launches_by_path"]["mesh-aware train (phase 17)"] = k4b
+    rec["K5"]["launches_by_path"]["mesh-aware steps (phase 17)"] = k5
+    for key, n in (("K4", k4), ("K4 bwd", k4b), ("K5", k5)):
+        rec[key]["launches"] = rec[key].get("launches", 0) + n
+    print(f"[phase 17] mesh-aware steps took {time.perf_counter() - t_ph:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -2573,6 +2959,7 @@ def main() -> int:
     phase_unified_kernels(rec, smi.splitlines()[0])
     phase_attention_kernels(rec, smi.splitlines()[0])
     phase_k4_backward(rec, smi.splitlines()[0])
+    phase_esp_kernels(rec, smi.splitlines()[0])
 
     from repro_torch.configs import get_config
 
@@ -2675,7 +3062,8 @@ def main() -> int:
                      (13, lambda: phase_ssm_audio_parity(card, rec)),
                      (14, lambda: phase_cli(card, rec)),
                      (15, lambda: phase_mesh(card, rec, lens)),
-                     (16, lambda: phase_train(card, rec))):
+                     (16, lambda: phase_train(card, rec)),
+                     (17, lambda: phase_mesh_model(card, rec))):
         t_ph = time.perf_counter()
         phase()
         print(f"[phase {n}] took {time.perf_counter() - t_ph:.1f} s")

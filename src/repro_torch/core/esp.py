@@ -22,8 +22,14 @@ computes with its own rank as a Python int (the reference's per-rank
 `lax.switch` specialization has no counterpart) on its own pool mirror (no
 leading rank axis on the paged operands), and the collectives are explicit.
 ``mesh`` is a `torch.distributed.device_mesh.DeviceMesh` or a
-`launch.mesh.SubMesh`.  `ESPAttnImpl` and the recurrent families' sequence
-parallelism are ROADMAP queue 1 item 14.
+`launch.mesh.SubMesh`.
+
+The model-level half — `ESPAttnImpl` (the striped ring through the
+layers' attention, multi-master decode with its LSE merge, the recurrent
+layers' handoff through `core.ssm_sp`) and `ShardedAttnImpl` (the mesh
+train step's attention) — runs on a `DeviceMesh` over the model's DTensors:
+each `shard_map` body of the reference is a `launch.mesh.shmap`
+(`local_map`) body here.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ import torch
 
 from repro_torch.core import striped
 from repro_torch.models import attention as A
+from repro_torch.models.transformer import DefaultAttnImpl
 
 
 def ring_packed_prefill(q, k, v, seq_offsets, n_shards: int, *,
@@ -356,3 +363,368 @@ def unified_iteration_spmd(mesh, model, impl, params, toks, positions,
     logits = model.unembed(params, sel[None])[0]  # [S, V]
     ids = torch.argmax(logits, dim=-1).to(torch.int32)
     return ids, kv[0], kv[1]
+
+
+# ====================================================== the model-level ESP
+
+
+def _slice_kv_heads(k, v, tp_idx: int, h_local: int, q_per_kv: int):
+    """Select the KV heads a rank's q-head block needs when KV is replicated
+    across tp. Requires blocks not to straddle KV groups (q_per_kv % h_local
+    == 0 or h_local % q_per_kv == 0) — true for every assigned arch."""
+    if h_local >= q_per_kv:
+        n_loc = h_local // q_per_kv
+        start = tp_idx * n_loc
+    else:
+        n_loc = 1
+        start = (tp_idx * h_local) // q_per_kv
+    return k[:, :, start:start + n_loc], v[:, :, start:start + n_loc]
+
+
+def _local_rank(mesh, axis: Optional[str]) -> int:
+    return int(mesh.get_local_rank(axis)) if axis else 0
+
+
+class ESPAttnImpl(DefaultAttnImpl):
+    """The model-level half of ESP on a `DeviceMesh` ("data" = the ESP
+    sequence axis ``sp``, "model" = tensor parallelism ``tp``): the port of
+    the reference's `ESPAttnImpl`, whose `shard_map` bodies become
+    `launch.mesh.shmap` (`local_map`) bodies over the model's DTensors.
+
+      * prefill: the striped ring over ``sp`` (or over DoP sub-rings of
+        it): at each step one `ops.attention_partial` (K4 with its LSE)
+        against the KV stripe held, merged in f32, and the stripe passed on
+        with `ops.ring_ppermute` (posted before the partial, waited on
+        after).  Heads mode shards q heads (and KV heads when divisible,
+        else each rank slices the KV heads its block needs) over ``tp``;
+        batch mode shards the batch over ``tp``.  ``ring_slice_tp`` (the
+        reference's §Perf A2) forwards 1/g of a stripe replicated over a
+        de-dup group of g tp ranks and all-gathers it after the leg.
+      * decode: multi-master (batch over ``sp``: all_gather of q, K5 over
+        the local KV shard, `pmax` + `psum_scatter` back to the masters) or
+        single master (`psum`); mode 1 shards KV heads over ``tp`` and the
+        sequence over ``sp``, mode 2 the sequence over ``sp`` x ``tp``
+        (shard ``lin = sp_rank * n_tp + tp_rank``, then a `psum` over tp).
+        The new token's one-key partial stays plain, as in
+        `DefaultAttnImpl`.
+      * ssm_scan: the sequence-parallel recurrent layers (`core.ssm_sp`).
+
+    At ``n_sp == 1`` each method runs `DefaultAttnImpl`'s (K4 / K5) inside
+    a `local_map` with the same tp layout.  The process groups (the whole
+    ``sp`` axis or its DoP sub-rings, tp, sp x tp, A2's de-dup groups) are
+    created here, collectively: every rank builds the impl in the same
+    order.  The reference's ``interpret`` flag has no counterpart."""
+
+    def __init__(self, mesh, cfg, *, sp_axis: str = "data",
+                 tp_axis: Optional[str] = "model", dop: Optional[int] = None,
+                 force_batch_mode: bool = False, ring_slice_tp: bool = False):
+        from repro_torch.launch.mesh import axis_groups, axis_size
+
+        self.mesh = mesh
+        self.cfg = cfg
+        self.sp = sp_axis
+        names = tuple(mesh.mesh_dim_names)
+        self.tp = tp_axis if (tp_axis and tp_axis in names) else None
+        self.n_sp = axis_size(mesh, sp_axis)
+        self.n_tp = axis_size(mesh, self.tp) if self.tp else 1
+        self.dop = dop or self.n_sp
+        assert self.n_sp % self.dop == 0
+        # prefill head sharding mode. Hybrid/ssm archs force batch mode so
+        # attention sharding matches the recurrent layers' (batch-over-tp)
+        # activation layout with no per-layer reshard.
+        self.heads_mode = (
+            not force_batch_mode
+            and (self.n_tp == 1 or cfg.n_heads % self.n_tp == 0)
+        )
+        self.kv_div = cfg.n_kv_heads % self.n_tp == 0 if self.n_tp > 1 else True
+        # decode KV sharding mode (mode1: heads over tp; mode2: seq over both)
+        self.decode_heads_mode = (
+            not force_batch_mode
+            and (self.n_tp == 1
+                 or (cfg.n_kv_heads % self.n_tp == 0
+                     and cfg.n_heads % self.n_tp == 0))
+        )
+        self.ring_slice_tp = ring_slice_tp
+        self.sp_rank = _local_rank(mesh, sp_axis)
+        self.tp_rank = _local_rank(mesh, self.tp)
+        # prefill geometry (static in cfg and the mesh)
+        tp = self.tp
+        self.h_local = (cfg.n_heads // self.n_tp if (self.heads_mode and tp)
+                        else cfg.n_heads)
+        self.slice_kv = bool(self.heads_mode and tp and not self.kv_div)
+        slice_ring = bool(self.ring_slice_tp and tp and self.n_tp > 1
+                          and (not self.kv_div or not self.heads_mode))
+        # ranks holding IDENTICAL kv tensors form the de-dup group: all tp
+        # ranks in batch mode; the q_per_kv/h_local block in heads mode
+        if slice_ring and self.heads_mode and self.slice_kv:
+            self.ring_group = max(cfg.q_per_kv // self.h_local, 1)
+        else:
+            self.ring_group = self.n_tp
+        self.slice_ring = slice_ring and self.ring_group >= 2
+        # process groups, created collectively once
+        self.sp_group = mesh.get_group(sp_axis)
+        self.ring = axis_groups(mesh, (sp_axis,), block=self.dop)
+        self.tp_group = mesh.get_group(tp) if tp else None
+        self.sptp_group = (axis_groups(mesh, (sp_axis, tp))
+                           if tp and self.n_tp > 1 else self.sp_group)
+        self.ag_group = (axis_groups(mesh, (tp,), block=self.ring_group)
+                         if self.slice_ring else None)
+
+    def _shmap(self, body, in_specs, out_specs):
+        from repro_torch.launch.mesh import shmap
+
+        return shmap(body, self.mesh, in_specs, out_specs)
+
+    # ---------------------------------------------------------------- prefill
+    def _prefill_specs(self, b: int):
+        from repro_torch.launch.sharding import P
+
+        sp, tp = self.sp, self.tp
+        if self.heads_mode:
+            q_spec = P(None, sp, tp, None)
+            kv_spec = P(None, sp, tp if (tp and self.kv_div) else None, None)
+        else:  # batch mode: batch over tp (replicated if not divisible)
+            btp = tp if (tp and b % self.n_tp == 0) else None
+            q_spec = P(btp, sp, None, None)
+            kv_spec = P(btp, sp, None, None)
+        return q_spec, kv_spec, P(sp)
+
+    def prefill_attn(self, q, k, v, q_pos, k_pos, *, causal, window, softcap):
+        """q [B,S,H,D] in the (striped) layout matching q_pos; S shards over
+        sp as the stripes. Returns [B,S,H,D]."""
+        from repro_torch.kernels import ops
+
+        q_spec, kv_spec, pos_spec = self._prefill_specs(q.shape[0])
+        q_pos = _positions(q_pos, q.shape[1], q)
+        k_pos = _positions(k_pos, k.shape[1], q)
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        slice_kv, tp_rank = self.slice_kv, self.tp_rank
+        h_local, q_per_kv = self.h_local, self.cfg.q_per_kv
+        if self.n_sp == 1:
+            def local(qb, kb, vb, qp, kp):
+                if slice_kv:
+                    kb, vb = _slice_kv_heads(kb, vb, tp_rank, h_local, q_per_kv)
+                return DefaultAttnImpl.prefill_attn(self, qb, kb, vb, qp, kp, **kw)
+
+            return self._shmap(local, (q_spec, kv_spec, kv_spec, pos_spec,
+                                       pos_spec), q_spec)(q, k, v, q_pos, k_pos)
+        ring_len, ring = self.dop, self.ring
+        ring_group, ag_group = self.ring_group, self.ag_group
+        # batch mode with the batch split over tp: the tp ranks hold
+        # different KV rows, so there is no de-dup group to slice the ring
+        # over (the reference slices all the same and attends to the wrong
+        # rows); the full stripe travels instead
+        slice_ring = self.slice_ring and not (
+            not self.heads_mode and q_spec[0] is not None)
+
+        def body(qb, kb, vb, qp, kp):
+            if slice_kv:
+                kb, vb = _slice_kv_heads(kb, vb, tp_rank, h_local, q_per_kv)
+            acc = None
+            kk, vv, kv_pos = kb.contiguous(), vb.contiguous(), kp.contiguous()
+            s_l = kb.shape[1]
+            for step in range(ring_len):
+                last = step == ring_len - 1
+                if not last:
+                    if slice_ring:
+                        # A2 slice-ring: each rank of the de-dup group
+                        # forwards only its 1/g token slice; receivers
+                        # re-gather within the group.
+                        per = s_l // ring_group
+                        t0 = (tp_rank % ring_group) * per
+                        nxt = ops.ring_ppermute(
+                            (kk[:, t0:t0 + per], vv[:, t0:t0 + per], kv_pos),
+                            ring, async_op=True)
+                    else:
+                        nxt = ops.ring_ppermute((kk, vv, kv_pos), ring,
+                                                async_op=True)
+                part = ops.attention_partial(qb, kk, vv, qp, kv_pos, **kw)
+                acc = part if acc is None else A.merge_partial(acc, part)
+                if not last:
+                    kk, vv, kv_pos = nxt.wait()
+                    if slice_ring:
+                        kk, vv = ops.all_gather((kk, vv), ag_group, axis=1)
+            return A.finalize_partial(acc).to(qb.dtype)
+
+        return self._shmap(body, (q_spec, kv_spec, kv_spec, pos_spec, pos_spec),
+                           q_spec)(q, k, v, q_pos, k_pos)
+
+    # ---------------------------------------------------------------- decode
+    def decode_attn(self, q, k_cache, v_cache, k_new, v_new, cache_len, *,
+                    window, softcap):
+        """Multi-master distributed decode (LoongServe §4.2).
+
+        q [B,1,H,D]; caches [B,S,KVH,D] sharded over sp (and tp in mode2) on
+        the sequence dim; k_new/v_new [B,1,KVH,D] live with the masters."""
+        from repro_torch.kernels import ops
+        from repro_torch.launch.sharding import P
+
+        n_sp, tp, sp = self.n_sp, self.tp, self.sp
+        b = q.shape[0]
+        cl = _positions(cache_len, b, q)
+        if n_sp == 1 and self.n_tp == 1:
+            def local(qb, kb, vb, knb, vnb, clb):
+                return DefaultAttnImpl.decode_attn(
+                    self, qb, kb, vb, knb, vnb, clb, window=window,
+                    softcap=softcap)
+
+            rep = P(None, None, None, None)
+            return self._shmap(local, (rep, rep, rep, rep, rep, P(None)),
+                               rep)(q, k_cache, v_cache, k_new, v_new, cl)
+        multi_master = b % n_sp == 0 and b >= n_sp
+        heads_mode = self.decode_heads_mode
+        h_local = (self.cfg.n_heads // self.n_tp if (heads_mode and tp)
+                   else self.cfg.n_heads)
+        n_tp, sp_rank, tp_rank = self.n_tp, self.sp_rank, self.tp_rank
+        lin = sp_rank if heads_mode else sp_rank * n_tp + tp_rank
+        merge_group = self.sp_group if heads_mode else self.sptp_group
+        slice_new = heads_mode and tp and not self.kv_div
+
+        def body(qb, kb, vb, knb, vnb, clb):
+            s_l = kb.shape[1]
+            # --- gather queries from masters (the q broadcast) ---
+            qg = (ops.all_gather(qb, self.sp_group, axis=0) if multi_master
+                  else qb)
+            part = ops.decode_partial(qg, kb, vb, clb, k_pos_offset=lin * s_l,
+                                      window=window, softcap=softcap)
+            # --- LSE-weighted combine across KV shards ---
+            m_g = ops.pmax(part.m, merge_group)
+            w = _lse_weights(part, m_g)
+            o_w, l_w = part.o * w[..., None], part.l * w
+            if not heads_mode and tp:
+                o_w, l_w = ops.psum((o_w, l_w), self.tp_group)
+            if multi_master:
+                # reduce-scatter back to masters (batch shards over sp)
+                o_s, l_s = ops.psum_scatter((o_w, l_w), self.sp_group)
+                b_l = b // n_sp
+                m_s = m_g[sp_rank * b_l:(sp_rank + 1) * b_l]
+            else:
+                o_s, l_s = ops.psum((o_w, l_w), self.sp_group)
+                m_s = m_g
+            # --- merge the master-local new-token partial ---
+            if slice_new:
+                knb, vnb = _slice_kv_heads(knb, vnb, tp_rank, h_local,
+                                           self.cfg.q_per_kv)
+            p_new = A.partial_attention(qb, knb, vnb, None, softcap=softcap)
+            merged = A.merge_partial(A.Partial(o_s, m_s, l_s), p_new)
+            return A.finalize_partial(merged).to(qb.dtype)
+
+        bspec = sp if multi_master else None
+        if heads_mode:
+            q_spec = P(bspec, None, tp, None)
+            kv_spec = P(None, sp, tp, None)
+            new_spec = P(bspec, None, tp if self.kv_div else None, None)
+        else:
+            q_spec = P(bspec, None, None, None)
+            kv_spec = P(None, (sp, tp) if tp else sp, None, None)
+            new_spec = P(bspec, None, None, None)
+        return self._shmap(
+            body, (q_spec, kv_spec, kv_spec, new_spec, new_spec, P(None)),
+            q_spec)(q, k_cache, v_cache, k_new, v_new, cl)
+
+    # ------------------------------------------------------------ recurrent
+    def ssm_scan(self, kind, p, x, cfg, state):
+        """Sequence-parallel recurrent layers (hybrid/ssm archs).
+
+        Mamba2/mLSTM use the 3-phase chunk-state handoff (local state-only
+        fold -> log-step exclusive device scan -> local pass with the true
+        incoming state). sLSTM is inherently sequential (xLSTM paper §2.3):
+        we all-gather its input and scan redundantly, slicing the local part.
+        These run on the *contiguous* (non-striped) layout; see
+        DESIGN.md §Arch-applicability.  At ``n_sp == 1`` the layer runs
+        whole per rank, the batch over tp when it divides."""
+        from repro_torch.core import ssm_sp
+
+        if self.n_sp == 1:
+            return ssm_sp.recurrent_local(self.mesh, kind, p, x, cfg, state,
+                                          tp=self.tp)
+        fns = {
+            "mamba": ssm_sp.mamba2_forward_sp,
+            "mlstm": ssm_sp.mlstm_forward_sp,
+            "slstm": ssm_sp.slstm_forward_sp,
+        }
+        return fns[kind](self.mesh, self.sp, p, x, cfg, state, tp=self.tp)
+
+
+def _positions(pos, n: int, like):
+    """Positions / lengths broadcast to [n] (a DTensor stays one)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(pos, DTensor):
+        return pos if tuple(pos.shape) == (n,) else pos.expand(n)
+    return torch.as_tensor(pos, device=like.device).expand(n)
+
+
+class ShardedAttnImpl(DefaultAttnImpl):
+    """The default attention on a mesh without ESP (the mesh train step's):
+    K4 runs per shard inside a `local_map` with the layout the train
+    constraint gives q / kv / attn_out — heads over "model" (KV heads too
+    when divisible, else each rank slices the KV heads its q-head block
+    needs and the KV gradient is partial over "model"), batch over the
+    batch axes; batch mode puts the batch over (pod, data, model).  The
+    recurrent layers run whole per rank on the batch shard (their weights
+    replicated, their gradients partial over the batch axes).  `local_map`
+    is differentiable, so K4's backward runs per shard."""
+
+    def __init__(self, mesh, cfg):
+        from repro_torch.launch import sharding as shlib
+
+        self.mesh = mesh
+        self.cfg = cfg
+        self.heads_mode = shlib.heads_mode(cfg, mesh)
+        self.kv_div = shlib.kv_div(cfg, mesh)
+        names = tuple(mesh.mesh_dim_names)
+        self.tp = "model" if "model" in names else None
+        self.n_tp = shlib.tp_size(mesh)
+        self.tp_rank = _local_rank(mesh, self.tp)
+
+    def _grad_partial(self, spec, over):
+        """Placements of a gradient: the spec's shards, Partial on the mesh
+        dims named in ``over``."""
+        from torch.distributed.tensor import Partial as PartialPl
+        from repro_torch.launch.sharding import placements
+
+        names = tuple(self.mesh.mesh_dim_names)
+        pl = placements(self.mesh, spec, len(spec))
+        return tuple(PartialPl() if names[i] in over else p
+                     for i, p in enumerate(pl))
+
+    def prefill_attn(self, q, k, v, q_pos, k_pos, *, causal, window, softcap):
+        from repro_torch.launch import sharding as shlib
+        from repro_torch.launch.mesh import shmap
+        from repro_torch.launch.sharding import P
+
+        b = q.shape[0]
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        grad = None
+        slice_kv = False
+        if self.heads_mode:
+            ba = shlib.batch_axes(self.mesh, b)
+            q_spec = P(ba, None, self.tp, None)
+            kv_spec = P(ba, None, self.tp if self.kv_div else None, None)
+            slice_kv = bool(self.tp and not self.kv_div)
+            if slice_kv:
+                g = self._grad_partial(kv_spec, (self.tp,))
+                grad = (None, g, g, None, None)
+        else:
+            ba = shlib.batch_axes(self.mesh, b, extra_model=True)
+            q_spec = kv_spec = P(ba, None, None, None)
+        h_local = self.cfg.n_heads // self.n_tp if self.heads_mode else self.cfg.n_heads
+        tp_rank, q_per_kv = self.tp_rank, self.cfg.q_per_kv
+
+        def local(qb, kb, vb, qp, kp):
+            if slice_kv:
+                kb, vb = _slice_kv_heads(kb, vb, tp_rank, h_local, q_per_kv)
+            return DefaultAttnImpl.prefill_attn(self, qb, kb, vb, qp, kp, **kw)
+
+        q_pos = _positions(q_pos, q.shape[1], q)
+        k_pos = _positions(k_pos, k.shape[1], q)
+        return shmap(local, self.mesh,
+                     (q_spec, kv_spec, kv_spec, P(None), P(None)), q_spec,
+                     in_grad_specs=grad)(q, k, v, q_pos, k_pos)
+
+    def ssm_scan(self, kind, p, x, cfg, state):
+        from repro_torch.core import ssm_sp
+
+        return ssm_sp.recurrent_local(self.mesh, kind, p, x, cfg, state,
+                                      batch_only=True)

@@ -11,8 +11,10 @@ layer of a serial prefill, one `decode_partial` per attention layer of a
 serial decode step).  The fault hook is the seam the engine's bounded-retry
 path (and a chaos harness) injects `TransientDispatchError` through.
 
-The counted collectives (`ring_ppermute`, `psum`, `pmax`, `psum_scatter`,
-`all_gather`, `broadcast`) are the mesh executor's communication on
+`attention_partial` is K4 as an unnormalized partial (the ESP ring step's
+function).  The counted collectives (`ring_ppermute`, `ppermute`,
+`psum`, `pmax`, `psum_scatter`, `all_gather`, `broadcast`) are the mesh
+executor's and the mesh-aware model path's communication on
 `torch.distributed` — gloo for CPU tensors, NCCL for CUDA tensors: each adds
 one to `dispatch_counts` and the per-rank payload bytes to `comm_bytes`
 under its name, as the reference's `lax` collectives do.
@@ -31,8 +33,11 @@ from repro_torch.kernels.paged_flash_prefill import (
     packed_flash_prefill,
     packed_flash_prefill_ring_chunk,
 )
-from repro_torch.kernels.striped_attention import striped_flash_attention
-from repro_torch.models.attention import Partial
+from repro_torch.kernels.striped_attention import (
+    striped_flash_attention,
+    striped_flash_attention_lse,
+)
+from repro_torch.models.attention import Partial, empty_partial
 
 
 class TransientDispatchError(RuntimeError):
@@ -77,6 +82,31 @@ def attention(q, k, v, q_pos, k_pos, *, causal=True, window=None,
     dispatch_counts["attention"] += 1
     return striped_flash_attention(q, k, v, q_pos, k_pos, causal=causal,
                                    window=window, softcap=softcap)
+
+
+def attention_partial(q, k, v, q_pos, k_pos, *, causal=True, window=None,
+                      softcap=None) -> Partial:
+    """Unnormalized position-masked attention partial (K4 with its row
+    LSE): the reference's ``partial_attention(q, k, v,
+    mask_from_positions(q_pos, k_pos, causal, window), softcap)``, one
+    launch per ESP ring step.  K4 returns the normalized output and each
+    row's log-sum-exp; as a partial that is ``(o, m = lse, l = 1)`` — the
+    same (o, m, l) class under `merge_partial` and `finalize_partial`.  A
+    row with no visible key (K4's ``o = 0, lse = +inf``) becomes the empty
+    partial ``m = -inf, l = 0``.  On a CPU tensor the same conversion runs
+    over K4's plain version with its LSE.  Refuses inputs that require
+    grad."""
+    check_fault("attention_partial")
+    dispatch_counts["attention_partial"] += 1
+    b, sq, h, d = q.shape
+    if sq == 0 or k.shape[1] == 0:
+        return empty_partial(b, sq, h, d, device=q.device)
+    o, lse = striped_flash_attention_lse(q, k, v, q_pos, k_pos, causal=causal,
+                                         window=window, softcap=softcap)
+    lse = lse.transpose(1, 2)  # [B, Sq, H]
+    empty = torch.isinf(lse)
+    m = torch.where(empty, torch.full((), -torch.inf, device=q.device), lse)
+    return Partial(o=o.float(), m=m.float(), l=(~empty).float())
 
 
 def decode_partial(q, k, v, lengths, *, k_pos_offset=0, window=None,
@@ -164,6 +194,27 @@ def count_transfer(key: str, operands) -> None:
     comm_bytes[key] += _payload_bytes(operands)
 
 
+def _send_recv(key, operands, group, pairs, async_op):
+    """One `batch_isend_irecv` of the operands over ``pairs`` (src, dst) of
+    group ranks; a rank with no source gets zeros."""
+    dispatch_counts[key] += 1
+    ranks = dist.get_process_group_ranks(group)
+    r = dist.get_rank(group)
+    xs = [x.contiguous() for x in _leaves(operands)]
+    outs = [torch.zeros_like(x) for x in xs]
+    ops_ = []
+    for src, dst in pairs:
+        if src == r:
+            comm_bytes[key] += _payload_bytes(xs)
+            ops_ += [dist.P2POp(dist.isend, x, ranks[dst], group, tag=i)
+                     for i, x in enumerate(xs)]
+        if dst == r:
+            ops_ += [dist.P2POp(dist.irecv, o, ranks[src], group, tag=i)
+                     for i, o in enumerate(outs)]
+    works = dist.batch_isend_irecv(ops_) if ops_ else []
+    return _finish(outs, works, operands, async_op, keep=xs)
+
+
 def ring_ppermute(operands, group, *, async_op: bool = False):
     """Forward the operands one step around the ring of ``group``: ONE
     `batch_isend_irecv` that sends to group rank r+1 and receives from
@@ -172,19 +223,19 @@ def ring_ppermute(operands, group, *, async_op: bool = False):
     per-rank payload bytes per leg).  ``async_op=True`` returns a `Pending`
     at once — the double-buffered ring posts the next leg before the
     fold."""
-    dispatch_counts["ring_ppermute"] += 1
-    comm_bytes["ring_ppermute"] += _payload_bytes(operands)
-    ranks = dist.get_process_group_ranks(group)
-    n, r = len(ranks), dist.get_rank(group)
-    dst, src = ranks[(r + 1) % n], ranks[(r - 1) % n]
-    xs = [x.contiguous() for x in _leaves(operands)]
-    outs = [torch.empty_like(x) for x in xs]
-    ops_ = [dist.P2POp(dist.isend, x, dst, group, tag=i)
-            for i, x in enumerate(xs)]
-    ops_ += [dist.P2POp(dist.irecv, o, src, group, tag=i)
-             for i, o in enumerate(outs)]
-    works = dist.batch_isend_irecv(ops_)
-    return _finish(outs, works, operands, async_op, keep=xs)
+    n = dist.get_world_size(group)
+    return _send_recv("ring_ppermute", operands, group,
+                      [(i, (i + 1) % n) for i in range(n)], async_op)
+
+
+def ppermute(operands, group, pairs):
+    """The reference's `lax.ppermute` over ``pairs`` of group ranks: each
+    rank sends the operands to its destination in ``pairs`` (if any) and
+    receives from its source (if any); a rank with no source gets zeros.
+    Pairwise transfers, not a ring: the sequence-parallel recurrent layers'
+    conv handoff and Hillis-Steele scans shift by 1, 2, 4, ... ranks
+    through here."""
+    return _send_recv("ppermute", operands, group, pairs, False)
 
 
 def _all_reduce(key, op, operands, group, async_op):

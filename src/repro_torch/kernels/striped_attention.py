@@ -190,3 +190,23 @@ def striped_flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
                   softcap=softcap)
     launch_counts["striped_flash_attention"] += 1
     return out
+
+
+def striped_flash_attention_lse(q, k, v, q_pos, k_pos, *, causal: bool = True,
+                                window: Optional[int] = None,
+                                softcap: Optional[float] = None):
+    """K4 with its row statistics: one launch that also writes each row's
+    log-sum-exp.  Returns (o [B, Sq, H, D] in q's dtype, lse [B, H, Sq]
+    f32); a row with no key gets o = 0 and lse = +inf.  On a CPU tensor the
+    plain forward with its LSE (`ref.striped_flash_attention_ref_lse`).
+    Refuses inputs that require grad: the ESP ring's partials are serving
+    math (training goes through `StripedFlashAttentionFn`)."""
+    from repro_torch.kernels import refuse_grad
+
+    refuse_grad("striped_flash_attention_lse", q, k, v)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    if q.device.type == "cpu":
+        return striped_flash_attention_ref_lse(q, k, v, q_pos, k_pos, **kw)
+    out = _launch(q, k, v, q_pos, k_pos, lse=True, **kw)
+    launch_counts["striped_flash_attention"] += 1
+    return out

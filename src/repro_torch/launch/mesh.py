@@ -12,13 +12,19 @@ on ``cuda``, gloo on ``cpu``) and the meshes are `init_device_mesh` grids of
 ranks over it.  `SubMesh` is the port's counterpart of the reference's
 sub-meshes (an ESP group over a subset of the "data" coordinates): a process
 group per "model" column, created collectively by every rank of the world.
+
+The mesh-aware model path adds `MeshShape` (a production mesh's axis names
+and sizes without its ranks, for the spec rules of `launch.sharding`),
+`shmap` (the reference's `shard_map` over `local_map`, with the port's
+specs) and `axis_groups` (the process groups of sub-rings and de-dup groups
+along one axis, or of several axes together).
 """
 from __future__ import annotations
 
 import datetime
 import os
 import socket
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -175,3 +181,141 @@ def rank_of(mesh, data: int, model: int = 0) -> int:
     names = list(mesh.mesh_dim_names)
     grid = mesh.mesh.permute(names.index("data"), names.index("model"))
     return int(grid[data, model])
+
+
+class MeshShape:
+    """Axis names and sizes of a mesh without its ranks: the (16, 16) and
+    (2, 16, 16) production meshes for the spec rules of `launch.sharding`,
+    which never need a process per rank."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
+        assert len(shape) == len(axis_names), (shape, axis_names)
+        self.mesh_dim_names = tuple(axis_names)
+        self.axis_names = self.mesh_dim_names
+        self.shape: Dict[str, int] = dict(zip(axis_names, map(int, shape)))
+
+    @property
+    def ndim(self) -> int:
+        return len(self.mesh_dim_names)
+
+    def size(self, dim: Optional[int] = None) -> int:
+        if dim is None:
+            n = 1
+            for v in self.shape.values():
+                n *= v
+            return n
+        return self.shape[self.mesh_dim_names[dim]]
+
+    def __repr__(self) -> str:
+        return f"MeshShape({self.shape})"
+
+
+def production_mesh_shape(*, multi_pod: bool = False) -> MeshShape:
+    """The production meshes' shapes: (16, 16) ("data", "model"), or
+    (2, 16, 16) with a leading "pod" axis."""
+    if multi_pod:
+        return MeshShape((2, 16, 16), ("pod",) + AXES)
+    return MeshShape((16, 16), AXES)
+
+
+def axis_groups(mesh, axes: Sequence[str], block: Optional[int] = None):
+    """The process group of this rank along ``axes`` of ``mesh`` (one axis,
+    or several taken together in mesh order: group rank = the row-major
+    index over them), optionally cut into consecutive blocks of ``block``
+    coordinates along a single axis (the DoP sub-rings of
+    `striped.ring_pairs(n, dop)`, A2's de-dup groups).
+
+    Collective: every rank of the world must call it with the same
+    arguments in the same order.  A whole single axis reuses the mesh's own
+    group; the others are created once per mesh and cached on it."""
+    names = list(mesh.mesh_dim_names)
+    axes = tuple(axes)
+    if len(axes) == 1 and block in (None, axis_size(mesh, axes[0])):
+        return mesh.get_group(axes[0])
+    cache = mesh.__dict__.setdefault("_repro_axis_groups", {})
+    key = (axes, block)
+    if key not in cache:
+        idx = [names.index(a) for a in axes]
+        assert idx == sorted(idx), (axes, names)
+        rest = [i for i in range(len(names)) if i not in idx]
+        grid = mesh.mesh.permute(*rest, *idx)
+        n_rest = 1
+        for i in rest:
+            n_rest *= int(mesh.mesh.shape[i])
+        rows = grid.reshape(n_rest, -1).tolist()
+        groups: List[List[int]] = []
+        for row in rows:
+            if block is None:
+                groups.append(row)
+            else:
+                assert len(axes) == 1 and len(row) % block == 0, (axes, block)
+                groups += [row[b:b + block] for b in range(0, len(row), block)]
+        cache[key], _ = dist.new_subgroups_by_enumeration(groups)
+    return cache[key]
+
+
+def _spec_placements(mesh, spec, ndim):
+    from repro_torch.launch.sharding import placements
+
+    return tuple(placements(mesh, spec, ndim))
+
+
+def _spec_leaves(specs):
+    """Flatten a tree of specs (tuples / NamedTuples of `sharding.P`, a `P`
+    being a leaf) in order."""
+    from repro_torch.launch.sharding import P
+
+    if isinstance(specs, P) or specs is None:
+        return [specs]
+    return [s for sub in specs for s in _spec_leaves(sub)]
+
+
+def shmap(body, mesh, in_specs, out_specs, *, in_grad_specs=None):
+    """The reference's ``shard_map(body, mesh, in_specs, out_specs)`` over
+    `torch.distributed.tensor.experimental.local_map`.
+
+    ``in_specs`` has one `sharding.P` per positional argument (applied to
+    every tensor leaf of a dict argument, as a JAX spec prefix; None for a
+    non-tensor); a DTensor argument is redistributed to it, a plain tensor
+    is taken as the replicated global value.  ``out_specs`` is one `P` or a
+    (nested) tuple of them, each written out to its output's full rank.
+    ``in_grad_specs`` (one entry per argument: None keeps the input's
+    placements, else a tuple of DTensor placements) names the placements
+    of an input's gradient where they differ from its own: a replicated
+    operand each rank uses only a part of has a partial gradient.  The body sees local
+    tensors and runs its collectives itself; the call is differentiable."""
+    import torch.utils._pytree as pytree
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    out_pl = tuple(_spec_placements(mesh, s, len(s))
+                   for s in _spec_leaves(out_specs))
+
+    def run(*args):
+        flat_in, in_pl, grad_pl = [], [], []
+        for i, (a, spec) in enumerate(zip(args, in_specs)):
+            gspec = in_grad_specs[i] if in_grad_specs is not None else None
+            leaves, tspec = pytree.tree_flatten(a)
+            new = []
+            for leaf in leaves:
+                if spec is None or not isinstance(leaf, torch.Tensor):
+                    new.append(leaf)
+                    in_pl.append(None)
+                    grad_pl.append(None)
+                    continue
+                if not isinstance(leaf, DTensor):
+                    leaf = DTensor.from_local(
+                        leaf, mesh, [Replicate()] * mesh.ndim, run_check=False)
+                new.append(leaf)
+                pl = _spec_placements(mesh, spec, leaf.ndim)
+                in_pl.append(pl)
+                grad_pl.append(pl if gspec is None else tuple(gspec))
+            flat_in.append(pytree.tree_unflatten(new, tspec))
+        fn = local_map(
+            body, out_placements=out_pl, in_placements=tuple(in_pl),
+            in_grad_placements=tuple(grad_pl), device_mesh=mesh,
+            redistribute_inputs=True,
+        )
+        return fn(*flat_in)
+
+    return run

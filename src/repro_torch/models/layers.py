@@ -103,7 +103,9 @@ def apply_ffn(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    return table[ids]
+    """Rows of ``table`` at ``ids`` (`F.embedding`: its gradient is the
+    embedding backward, which DTensor shards over a batch-split ``ids``)."""
+    return F.embedding(ids, table)
 
 
 def lm_head_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -426,8 +426,7 @@ class Model(nn.Module):
             x, _, (k, v) = self._dense_stack(params, x, positions)
             cache = Cache(k=k, v=v, length=length)
         if last_logit_only:
-            pos = torch.as_tensor(positions, device=x.device).expand(t)
-            x = x[:, int(torch.argmax(pos))][:, None, :]
+            x = _last_position(x, positions)
         return self.unembed(params, x), cache
 
     def prefill_packed_hidden(
@@ -465,6 +464,7 @@ class Model(nn.Module):
         if tokens.ndim == 1:
             tokens = tokens[:, None]
         x = layers.embed_lookup(params["embed"], tokens).to(self.dtype)
+        x = self.constrain(x, "act")
         cl = cache.length
         if self.cfg.family == "hybrid":
             x, kvs, states = self._hybrid_stack(
@@ -495,6 +495,23 @@ class Model(nn.Module):
         cache, per-layer new KV)."""
         logits, new_cache, kvs = self.decode(params, tokens, cache)
         return torch.argmax(logits, dim=-1).to(torch.int32), new_cache, kvs
+
+
+def _last_position(x, positions):
+    """x [B, T, d] at the final *global* position (the max of
+    `positions`, correct under striped layouts) -> [B, 1, d].  A
+    sequence-sharded DTensor takes the reference's masked reduction, which
+    stays sharded (a slice at a computed index would gather x)."""
+    from torch.distributed.tensor import DTensor
+
+    t = x.shape[1]
+    if isinstance(x, DTensor):
+        pos = positions if isinstance(positions, DTensor) else \
+            torch.as_tensor(positions, device=x.to_local().device).expand(t)
+        sel = (pos == pos.max()).to(x.dtype)
+        return torch.einsum("bsd,s->bd", x, sel)[:, None, :]
+    pos = torch.as_tensor(positions, device=x.device).expand(t)
+    return x[:, int(torch.argmax(pos))][:, None, :]
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -86,6 +86,8 @@ def test_port_imports_no_jax_and_no_reference():
         "assert 'repro_torch.launch.mesh' in mods, mods\n"
         "assert 'repro_torch.launch.steps' in mods, mods\n"
         "assert 'repro_torch.launch.train' in mods, mods\n"
+        "assert 'repro_torch.launch.sharding' in mods, mods\n"
+        "assert 'repro_torch.core.ssm_sp' in mods, mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )

@@ -312,6 +312,12 @@ def test_prefill_and_decode_steps_match_reference(arch):
 
 
 def test_mesh_steps_wait_for_the_dry_run_slice():
-    cfg = t_reduced(T_REGISTRY["lwm-7b"])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tsteps.make_train_step(cfg, object(), device="cpu")
+    """The dense, hybrid and ssm steps run on a mesh
+    (tests/test_torch_esp_spmd.py); a moe model on a mesh waits for
+    ROADMAP item 14.1b."""
+    from repro_torch.launch.mesh import MeshShape
+
+    cfg = t_reduced(T_REGISTRY["mixtral-8x7b"])
+    with pytest.raises(NotImplementedError, match="item 14.1b"):
+        tsteps.make_train_step(cfg, MeshShape((2, 2), ("data", "model")),
+                               device="cpu")

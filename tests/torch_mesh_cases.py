@@ -28,14 +28,17 @@ NEW_TOKENS = 4
 
 
 # ------------------------------------------------------------------ parent
-def spawn(world: int, cases, payload, tmp, timeout: float = 240.0):
+def spawn(world: int, cases, payload, tmp, timeout: float = 240.0,
+          module: str = __name__):
+    """``module`` names the module whose `CASES` the ranks run."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     init = os.path.join(str(tmp), f"rdv_{world}_{time.monotonic_ns()}")
     procs = [ctx.Process(target=_rank_main,
-                         args=(r, world, init, list(cases), payload, q))
+                         args=(r, world, init, list(cases), payload, q,
+                               module))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -73,7 +76,9 @@ def spawn(world: int, cases, payload, tmp, timeout: float = 240.0):
     return [results[r] for r in range(world)]
 
 
-def _rank_main(rank, world, init, cases, payload, q):
+def _rank_main(rank, world, init, cases, payload, q, module=__name__):
+    import importlib
+
     import torch
     import torch.distributed as dist
 
@@ -84,8 +89,9 @@ def _rank_main(rank, world, init, cases, payload, q):
         init_process_group("cpu", init_method=f"file://{init}",
                            world_size=world, rank=rank, timeout_s=180.0)
         out = {}
+        registry = importlib.import_module(module).CASES
         for name in cases:
-            out[name] = CASES[name](rank, world, payload)
+            out[name] = registry[name](rank, world, payload)
         q.put((rank, out, None))
     except BaseException:  # report every failure to the parent, then exit
         q.put((rank, None, traceback.format_exc()))

@@ -31,7 +31,23 @@ Spawns one process per rank (rank r on card r) that opens the world with
      tokens): every rank's tokens equal, and equal to the port's serial
      oracle; the run's dispatch counts and collective bytes.
 
-Rank 0 prints every phase; the last line is a JSON summary.  Exits
+  4. the mesh-aware model path (`launch.steps` on a `DeviceMesh`: DTensor
+     parameters and inputs, `ESPAttnImpl`'s striped ring through
+     `ops.attention_partial` and its multi-master decode through K5) on
+     the meshes (world, 1) and, for an even world above 2, (2, world / 2):
+     the prefill step at lwm-7b width (4 of 32 layers, bf16, B 1 x S
+     16384, striped over the data ranks) and the decode step (B 8 at 16384
+     cached tokens): logits within one bf16 rounding (2^-8 x max|logit|)
+     per tensor-parallel product of the ``mesh=None`` step's on one card,
+     and next tokens equal but where the one-card top two logits are a near
+     tie the bf16 rounding may break; the slowest rank's time (CUDA events) beside one card's
+     ``mesh=None`` step, and `ops.comm_bytes` per collective; then
+     `ssm_sp.mamba2_forward_sp` (zamba2-2.7b width) and `mlstm_forward_sp`
+     (xlstm-350m width) at B 2 x S 8192 on (world, 1) against their
+     single-card forwards, timed the same way.
+
+``--only 4`` runs phase 4 alone.  Rank 0 prints every phase; the last line
+is a JSON summary.  Exits
 non-zero if a phase fails, a rank hangs past the time limit, or (without
 ``--cpu``) there is no CUDA device.
 """
@@ -158,7 +174,173 @@ def _shares(lens, n, page, kvh, d, seed):
     return out
 
 
-def _rank(rank, world, init, cpu, q_out):
+def _tokens_check(tag, got, want, logits, want_logits, n_layers, log):
+    """The mesh step's greedy tokens against one card's: the logits within
+    n_layers x 2 x 2^-8 x max|logit| — over "model" each layer's two
+    tensor-parallel products (attention out, FFN down) are summed from
+    partial results rounded to bf16, one bf16 rounding each, where one card
+    rounds the whole product once — and a token may differ only in a row
+    whose one-card top two logits lie closer than twice the largest logit
+    difference (a near tie the rounding may break either way).  Returns
+    the counts."""
+    import torch
+
+    from repro_torch.launch import steps
+
+    got, logits = steps.full_value(got).cpu(), steps.full_value(logits).float().cpu()
+    want, want_logits = want.cpu(), want_logits.float().cpu()
+    diff = (logits - want_logits).abs().max().item()
+    tol = n_layers * 2 * 2.0 ** -8 * want_logits.abs().max().item()
+    top2 = torch.topk(want_logits, 2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    differ = got != want
+    ties = bool((margin[differ] <= 2 * diff).all())
+    log.append(f"  {tag}: logits max abs diff {diff:.3e} (tol {tol:.3e}); "
+               f"{int(differ.sum())} of {got.numel()} tokens differ (each a near tie: "
+               f"{ties}; smallest top-2 margin {margin.min().item():.3e})")
+    assert diff <= tol and ties, (tag, diff, tol, got, want, margin)
+    return {"logit_diff": diff, "tol": tol, "differ": int(differ.sum()),
+            "rows": got.numel()}
+
+
+def _phase_model(rank, world, dev, cpu, res, log):
+    """Phase 4: the mesh-aware steps and the recurrent layers' sequence
+    parallelism across the world."""
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.convert import init_params
+    from repro_torch.core import ssm_sp, striped
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as shlib
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import ssm, xlstm
+    from repro_torch.models.transformer import layer_params
+
+    world_group = dist.group.WORLD
+    cfg = dataclasses.replace(get_config("lwm-7b"), n_layers=4)
+    s, b_dec = 16384, 8
+    if cpu:
+        cfg, s = reduced(cfg, n_layers=2), 64
+    gen = torch.Generator(device=dev).manual_seed(4)
+    params = init_params(cfg, gen, dev)
+    rng = np.random.default_rng(4)
+    prompt = rng.integers(0, cfg.vocab_size, (1, s))
+    _, pre1 = steps.make_prefill_step(cfg, None, device=dev)
+    _, dec1 = steps.make_decode_step(cfg, None, device=dev)
+    # the decode batch's cache: B 8 at s cached tokens (seeded, the same on
+    # every rank), one slot of padding
+    shape = (cfg.n_layers, b_dec, s + world * 2, cfg.n_kv_heads, cfg.head_dim)
+    gk = torch.Generator(device=dev).manual_seed(5)
+    kc = (torch.randn(shape, generator=gk, device=dev) * 0.5).to(params["embed"].dtype)
+    vc = (torch.randn(shape, generator=gk, device=dev) * 0.5).to(params["embed"].dtype)
+    flat = {"k": kc, "v": vc,
+            "length": torch.full((b_dec,), s, dtype=torch.int32, device=dev)}
+    dtoks = torch.as_tensor(rng.integers(0, cfg.vocab_size, b_dec), dtype=torch.int32,
+                            device=dev)
+    dmodel1 = steps.build_model_for(cfg, None, "decode", device=dev)
+    with torch.no_grad():
+        want_dec_logits = dmodel1.decode(params, dtoks,
+                                         steps.cache_from_flat(cfg, flat))[0]
+    want_dec = dec1(dtoks, flat, params)["next_token"]
+    res["decode_one_card_ms"] = _timed(lambda: dec1(dtoks, flat, params), world_group, dev)
+    meshes = [(world, 1)] + ([(2, world // 2)] if world > 2 and world % 2 == 0 else [])
+    out = {}
+    for shp in meshes:
+        tag = f"{shp[0]}x{shp[1]}"
+        mesh = make_test_mesh(*shp, device=dev.type)
+        perm = striped.stripe_indices(s, shp[0])
+        toks = torch.as_tensor(prompt[:, perm], dtype=torch.int32, device=dev)
+        pos = torch.as_tensor(perm, dtype=torch.int32, device=dev)
+        want, _ = pre1({"tokens": toks}, pos, params)
+        pmodel1 = steps.build_model_for(cfg, None, "prefill", device=dev)
+        with torch.no_grad():
+            want_logits = pmodel1.prefill(params, {"tokens": toks}, pos,
+                                          last_logit_only=True)[0][:, -1]
+        one_ms = _timed(lambda: pre1({"tokens": toks}, pos, params), world_group, dev)
+        pmodel, pre = steps.make_prefill_step(cfg, mesh, device=dev)
+        pp = steps.place_params(cfg, mesh, params)
+        ish = steps.input_shardings(cfg, ShapeSpec("probe", "prefill", s, 1), mesh)
+        batch = shlib.distribute({"tokens": toks}, mesh, ish["batch"])
+        positions = shlib.distribute(pos, mesh, ish["positions"])
+        ops.reset_dispatch_counts()
+        nt, _ = pre(batch, positions, pp)
+        counts, nbytes = dict(ops.dispatch_counts), dict(ops.comm_bytes)
+        with torch.no_grad(), steps.mesh_context(mesh):
+            logits = pmodel.prefill(pp, batch, positions, last_logit_only=True)[0][:, -1]
+        pre_check = _tokens_check(f"{tag} prefill", nt, want, logits, want_logits,
+                                  cfg.n_layers, log)
+        ms = _timed(lambda: pre(batch, positions, pp), world_group, dev)
+        dmodel, dec = steps.make_decode_step(cfg, mesh, device=dev)
+        dsh = steps.input_shardings(cfg, ShapeSpec("probe", "decode", s, b_dec), mesh)
+        dflat = shlib.distribute(flat, mesh, dsh["cache"])
+        dt_ = shlib.distribute(dtoks, mesh, dsh["tokens"])
+        ops.reset_dispatch_counts()
+        got = dec(dt_, dflat, pp)["next_token"]
+        dcounts, dbytes = dict(ops.dispatch_counts), dict(ops.comm_bytes)
+        with torch.no_grad(), steps.mesh_context(mesh):
+            dlogits = dmodel.decode(pp, dt_, steps.cache_from_flat(cfg, dflat))[0]
+        dec_check = _tokens_check(f"{tag} decode", got, want_dec, dlogits,
+                                  want_dec_logits, cfg.n_layers, log)
+        dms = _timed(lambda: dec(dt_, dflat, pp), world_group, dev)
+        out[tag] = dict(prefill_check=pre_check, decode_check=dec_check,
+                        prefill_ms=ms, prefill_one_card_ms=one_ms,
+                        prefill_counts=counts, prefill_comm_bytes=nbytes,
+                        decode_ms=dms, decode_counts=dcounts, decode_comm_bytes=dbytes)
+        log.append(f"  mesh {tag}: prefill S {s}: slowest rank {ms:.3f} ms vs one "
+                   f"card {one_ms:.3f} ms; decode B {b_dec} at {s} cached: "
+                   f"{dms:.3f} ms vs one card {res['decode_one_card_ms']:.3f} ms")
+        del pp, dflat
+    res["model_steps"] = out
+    del flat, kc, vc, params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # the recurrent layers' sequence parallelism at full width
+    mesh = make_test_mesh(world, 1, device=dev.type)
+    b, s2 = 2, (64 if cpu else 8192)
+    rec = {}
+    for kind, arch, layers in (("mamba", "zamba2-2.7b", 6), ("mlstm", "xlstm-350m", 8)):
+        c = dataclasses.replace(get_config(arch), n_layers=layers)
+        if cpu:
+            c = reduced(c)
+        p = init_params(c, torch.Generator(device=dev).manual_seed(6), dev)
+        if kind == "mamba":
+            lp = layer_params(layer_params(p["layers"]["mamba_layers"], 0), 0)["mamba"]
+            fn_sp, fn_one = ssm_sp.mamba2_forward_sp, ssm.mamba2_forward
+        else:
+            lp = layer_params(layer_params(p["layers"]["mlstm_layers"], 0), 0)["cell"]
+            fn_sp, fn_one = ssm_sp.mlstm_forward_sp, xlstm.mlstm_block_forward
+        gx = torch.Generator(device=dev).manual_seed(7)
+        x = (torch.randn((b, s2, c.d_model), generator=gx, device=dev) * 0.1).to(
+            p["embed"].dtype)
+        with torch.no_grad():
+            y1, _ = fn_one(lp, x, c, None)
+            y, _ = fn_sp(mesh, "data", lp, x, c, None)
+            yg = steps.full_value(y)
+            err = (yg.float() - y1.float()).abs().max().item()
+            tol = 3e-2 * y1.float().abs().max().item()
+            assert err <= tol, (kind, err, tol)
+            ops.reset_dispatch_counts()
+            fn_sp(mesh, "data", lp, x, c, None)
+            nbytes = dict(ops.comm_bytes)
+            sp_ms = _timed(lambda: fn_sp(mesh, "data", lp, x, c, None), world_group, dev)
+            one_ms = _timed(lambda: fn_one(lp, x, c, None), world_group, dev)
+        rec[kind] = dict(sp_ms=sp_ms, one_card_ms=one_ms, max_abs_err=err, tol=tol,
+                         comm_bytes=nbytes)
+        log.append(f"  {kind}_forward_sp ({arch} width, B {b} x S {s2}, world {world}): "
+                   f"max abs err {err:.3e} (tol {tol:.3e}) vs one card's forward; "
+                   f"slowest rank {sp_ms:.3f} ms vs one card {one_ms:.3f} ms")
+        del p, lp, x, y, y1, yg
+    res["recurrent_sp"] = rec
+    del cs
+
+
+def _rank(rank, world, init, cpu, q_out, only=None):
     import torch
     import torch.distributed as dist
 
@@ -196,6 +378,12 @@ def _rank(rank, world, init, cpu, q_out):
         res = {"rank": rank, "backend": backend, "world": world,
                "device": str(dev) if cpu else torch.cuda.get_device_name(dev)}
         log = []
+        if only == 4:
+            _phase_model(rank, world, dev, cpu, res, log)
+            res["log"] = log
+            res["tokens"] = []
+            q_out.put((rank, res, None))
+            return
 
         # ---- 1. the ring
         unit = 128 * world
@@ -313,6 +501,7 @@ def _rank(rank, world, init, cpu, q_out):
                 want_t = ref.serial_decode_oracle(model, params, r.prompt, 7)
                 assert r.output_tokens == want_t, (r.rid, r.output_tokens, want_t)
             res["oracle"] = "equal"
+        _phase_model(rank, world, dev, cpu, res, log)
         res["log"] = log
         q_out.put((rank, res, None))
     except BaseException:  # every failure goes to the parent
@@ -327,6 +516,8 @@ def main() -> int:
     ap.add_argument("--cpu", type=int, default=0, metavar="N",
                     help="rehearse with N gloo ranks on the CPU")
     ap.add_argument("--timeout", type=float, default=900.0)
+    ap.add_argument("--only", type=int, default=None, choices=[4],
+                    help="run phase 4 (the mesh-aware model path) alone")
     args = ap.parse_args()
     import torch
     import torch.multiprocessing as mp
@@ -345,7 +536,8 @@ def main() -> int:
     init = f"file://{os.path.join(tmp, 'rdv')}"
     ctx = mp.get_context("spawn")
     q_out = ctx.Queue()
-    procs = [ctx.Process(target=_rank, args=(r, world, init, bool(args.cpu), q_out))
+    procs = [ctx.Process(target=_rank, args=(r, world, init, bool(args.cpu), q_out,
+                                             args.only))
              for r in range(world)]
     t0 = time.perf_counter()
     for p in procs:
@@ -383,7 +575,8 @@ def main() -> int:
                 "ring_trace_db0", "k1_one_card_ms",
                 "ring_leg_ms", "ring_leg_bytes", "ring_counts", "ring_bytes",
                 "spmd_ms", "sharded_ms", "k2_one_card_ms", "engine_wall_s",
-                "engine_counts", "engine_bytes", "oracle"):
+                "engine_counts", "engine_bytes", "oracle", "decode_one_card_ms",
+                "model_steps", "recurrent_sp"):
         print(f"[mesh_probe] {key}: {r0.get(key)}")
     print(f"[mesh_probe] took {time.perf_counter() - t0:.1f} s")
     summary = {k: v for k, v in r0.items() if k not in ("log", "tokens")}
