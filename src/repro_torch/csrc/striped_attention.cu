@@ -30,7 +30,9 @@
 //     marks 64-key tiles in two bitmaps: live (some key can meet some query
 //     of the CTA) and inner (every key exists and meets every query, so no
 //     per-element mask).  The CTAs start with the longest q tiles of every
-//     KV head.  The output is rounded to bf16 once, in the epilogue.
+//     KV head.  The output is rounded to bf16 once, in the epilogue, or
+//     written in f32 (the output-type template OT) for the ESP ring step,
+//     whose partials are merged in f32 as the reference merges them.
 //   * f32 (the parity route of the f32 token checks; tensor cores would round
 //     f32 operands to TF32): plain fp32 FMAs on 32-key shared-memory tiles
 //     (4 x 4 score and 4 x D/8 output register blocks per thread), head-size
@@ -327,12 +329,12 @@ struct PositionMask {
   }
 };
 
-template <int DP>
+template <int DP, typename OT>
 __global__ void __launch_bounds__(tc::Cta<DP>::kThreads, tc::Cta<DP>::kMinBlocks)
     striped_attention_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ q_pos,
-    const int* __restrict__ k_pos, __nv_bfloat16* __restrict__ o,
+    const int* __restrict__ k_pos, OT* __restrict__ o,
     float* __restrict__ lse, int sq, int sk, int h, int kvh, int d, int qpk,
     int bq, int causal, int window, float softcap, float scale) {
   constexpr int kThreads = tc::Cta<DP>::kThreads;
@@ -355,7 +357,7 @@ __global__ void __launch_bounds__(tc::Cta<DP>::kThreads, tc::Cta<DP>::kMinBlocks
   const __nv_bfloat16* qb = q + (size_t)b * sq * h * d;
   const __nv_bfloat16* kb = k + (size_t)b * sk * kvh * d + (size_t)g * d;
   const __nv_bfloat16* vb = v + (size_t)b * sk * kvh * d + (size_t)g * d;
-  __nv_bfloat16* ob = o + (size_t)b * sq * h * d;
+  OT* ob = o + (size_t)b * sq * h * d;
 
   if (warp == 0) {  // position range of this tile's queries
     int lo = INT_MAX, hi = INT_MIN;
@@ -438,14 +440,18 @@ __global__ void __launch_bounds__(tc::Cta<DP>::kThreads, tc::Cta<DP>::kMinBlocks
   tc::store_rows<DP>(acc.o, [&](int r, int col, float4 x) {
     if (r >= bq * qpk || r / qpk >= nq || col >= d) return;
     const size_t row = (size_t)(t0 + r / qpk) * h + g * qpk + r % qpk;
-    uint2 w;
-    w.x = tc::pack_bf16(x.x, x.y);
-    w.y = tc::pack_bf16(x.z, x.w);
-    *reinterpret_cast<uint2*>(ob + row * d + col) = w;
+    if constexpr (std::is_same_v<OT, float>) {  // the f32 accumulator as it is
+      *reinterpret_cast<float4*>(ob + row * d + col) = x;
+    } else {
+      uint2 w;
+      w.x = tc::pack_bf16(x.x, x.y);
+      w.y = tc::pack_bf16(x.z, x.w);
+      *reinterpret_cast<uint2*>(ob + row * d + col) = w;
+    }
   });
 }
 
-template <int DP>
+template <int DP, typename OT>
 int launch_tc(const void* q, const void* k, const void* v, const int* q_pos,
               const int* k_pos, void* o, float* lse, int b, int sq, int sk, int h, int kvh,
               int d, int causal, int window, float softcap, float scale,
@@ -455,7 +461,7 @@ int launch_tc(const void* q, const void* k, const void* v, const int* q_pos,
   const long long n_words = ((sk + tc::kBK - 1) / tc::kBK + 31) / 32;
   const long long smem = tc::Smem<DP>::kBytes + n_words * sizeof(uint2);
   if (smem > INT_MAX) return (int)cudaErrorInvalidValue;
-  auto kern = striped_attention_tc_kernel<DP>;
+  auto kern = striped_attention_tc_kernel<DP, OT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -464,12 +470,12 @@ int launch_tc(const void* q, const void* k, const void* v, const int* q_pos,
   kern<<<grid, threads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), q_pos, k_pos,
-      static_cast<__nv_bfloat16*>(o), lse, sq, sk, h, kvh, d, qpk, bq, causal,
+      static_cast<OT*>(o), lse, sq, sk, h, kvh, d, qpk, bq, causal,
       window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename OT = T>
 int dispatch_d(const void* q, const void* k, const void* v, const int* q_pos,
                const int* k_pos, void* o, float* lse, int b, int sq, int sk, int h,
                int kvh, int d, int causal, int window, float softcap,
@@ -477,9 +483,9 @@ int dispatch_d(const void* q, const void* k, const void* v, const int* q_pos,
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {  // tensor cores
     if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15)
       return (int)cudaErrorMisalignedAddress;
-#define REPRO_LAUNCH(DP)                                                   \
-  return launch_tc<DP>(q, k, v, q_pos, k_pos, o, lse, b, sq, sk, h, kvh, d, \
-                       causal, window, softcap, scale, s)
+#define REPRO_LAUNCH(DP)                                                       \
+  return launch_tc<DP, OT>(q, k, v, q_pos, k_pos, o, lse, b, sq, sk, h, kvh, d, \
+                           causal, window, softcap, scale, s)
     switch (tc::head_template(d)) {
       case 64: REPRO_LAUNCH(64);
       case 80: REPRO_LAUNCH(80);
@@ -505,7 +511,9 @@ int dispatch_d(const void* q, const void* k, const void* v, const int* q_pos,
 extern "C" {
 
 // q [b, sq, h, d], k / v [b, sk, kvh, d] and o [b, sq, h, d], contiguous,
-// all of one dtype (0 = float32, 1 = bfloat16); lse, when not null, f32
+// all of one dtype (0 = float32, 1 = bfloat16), except that o_f32 != 0 with
+// bfloat16 operands writes o in float32: the normalized accumulator before
+// any rounding (the ESP ring step's partial); lse, when not null, f32
 // [b, h, sq]: each row's m + log l (+inf for a row with no key), the saved
 // statistic of the backward (striped_attention_bwd.cu); q_pos [sq] and k_pos [sk]
 // int32 in any order.  causal != 0 masks q_pos < k_pos; window <= 0 and
@@ -518,8 +526,8 @@ int repro_striped_attention(const void* q, const void* k, const void* v,
                             const int* q_pos, const int* k_pos, void* o,
                             float* lse, int b,
                             int sq, int sk, int h, int kvh, int d, int dtype,
-                            int causal, int window, float softcap, float scale,
-                            void* stream) {
+                            int o_f32, int causal, int window, float softcap,
+                            float scale, void* stream) {
   if (d % 8 != 0 || d > 256 || d < 8 || kvh < 1 || h % kvh != 0 ||
       h / kvh > kRows || b < 1 || b > 65535 || sq < 1 || sk < 1)
     return (int)cudaErrorInvalidValue;
@@ -527,6 +535,10 @@ int repro_striped_attention(const void* q, const void* k, const void* v,
   if (dtype == 0)
     return dispatch_d<float>(q, k, v, q_pos, k_pos, o, lse, b, sq, sk, h, kvh,
                              d, causal, window, softcap, scale, s);
+  if (dtype == 1 && o_f32)
+    return dispatch_d<__nv_bfloat16, float>(q, k, v, q_pos, k_pos, o, lse, b, sq,
+                                            sk, h, kvh, d, causal, window,
+                                            softcap, scale, s);
   if (dtype == 1)
     return dispatch_d<__nv_bfloat16>(q, k, v, q_pos, k_pos, o, lse, b, sq, sk,
                                      h, kvh, d, causal, window, softcap, scale, s);

@@ -54,7 +54,7 @@ _SIGNATURES = {
         "repro_paged_decode_error_string": [_I],
     },
     "striped_attention": {
-        "repro_striped_attention": [_P] * 7 + [_I] * 9 + [_F, _F, _P],
+        "repro_striped_attention": [_P] * 7 + [_I] * 10 + [_F, _F, _P],
         "repro_striped_attention_error_string": [_I],
     },
     "striped_attention_bwd": {

@@ -89,8 +89,9 @@ def attention_partial(q, k, v, q_pos, k_pos, *, causal=True, window=None,
     """Unnormalized position-masked attention partial (K4 with its row
     LSE): the reference's ``partial_attention(q, k, v,
     mask_from_positions(q_pos, k_pos, causal, window), softcap)``, one
-    launch per ESP ring step.  K4 returns the normalized output and each
-    row's log-sum-exp; as a partial that is ``(o, m = lse, l = 1)`` — the
+    launch per ESP ring step.  K4 returns the normalized output in f32 (for
+    bf16 operands too: the reference merges f32 partials) and each row's
+    log-sum-exp; as a partial that is ``(o, m = lse, l = 1)`` — the
     same (o, m, l) class under `merge_partial` and `finalize_partial`.  A
     row with no visible key (K4's ``o = 0, lse = +inf``) becomes the empty
     partial ``m = -inf, l = 0``.  On a CPU tensor the same conversion runs
@@ -106,7 +107,7 @@ def attention_partial(q, k, v, q_pos, k_pos, *, causal=True, window=None,
     lse = lse.transpose(1, 2)  # [B, Sq, H]
     empty = torch.isinf(lse)
     m = torch.where(empty, torch.full((), -torch.inf, device=q.device), lse)
-    return Partial(o=o.float(), m=m.float(), l=(~empty).float())
+    return Partial(o=o, m=m.float(), l=(~empty).float())
 
 
 def decode_partial(q, k, v, lengths, *, k_pos_offset=0, window=None,

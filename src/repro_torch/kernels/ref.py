@@ -28,11 +28,13 @@ def striped_flash_attention_ref(q, k, v, q_pos, k_pos, *, causal=True,
 
 
 def striped_flash_attention_ref_lse(q, k, v, q_pos, k_pos, *, causal=True,
-                                    window=None, softcap=None):
+                                    window=None, softcap=None, o_acc=False):
     """Plain K4 forward with its row statistics: (o [B,Sq,H,D] in q's
-    dtype, lse [B,H,Sq] in the accumulation type: f32, f64 for f64).  ``lse = m + log l`` of the row's softmax
-    over the soft-capped, scaled scores; a row with no key gets ``+inf``,
-    so ``exp(t - lse)`` is 0 for it in the backward."""
+    dtype, or in the accumulation type with ``o_acc`` (the ESP ring step's
+    partial), lse [B,H,Sq] in the accumulation type: f32, f64 for f64).
+    ``lse = m + log l`` of the row's softmax over the soft-capped, scaled
+    scores; a row with no key gets ``+inf``, so ``exp(t - lse)`` is 0 for
+    it in the backward."""
     qp = torch.as_tensor(q_pos).to(q.device)
     kp = torch.as_tensor(k_pos).to(q.device)
     need_mask = causal or window is not None
@@ -41,7 +43,8 @@ def striped_flash_attention_ref_lse(q, k, v, q_pos, k_pos, *, causal=True,
     part = A.partial_attention(q, k, v, mask, softcap=softcap)
     lse = torch.where(part.l > 0, part.m + torch.log(part.l),
                       torch.full((), torch.inf, device=q.device))
-    return A.finalize_partial(part).to(q.dtype), lse.transpose(1, 2).contiguous()
+    o = A.finalize_partial(part)
+    return (o if o_acc else o.to(q.dtype)), lse.transpose(1, 2).contiguous()
 
 
 def striped_flash_attention_bwd_ref(q, k, v, o, do, lse, q_pos, k_pos, *,

@@ -79,9 +79,11 @@ def _mask_args(causal, window, softcap):
             float(softcap) if softcap is not None else 0.0)
 
 
-def _launch(q, k, v, q_pos, k_pos, *, causal, window, softcap, lse=False):
+def _launch(q, k, v, q_pos, k_pos, *, causal, window, softcap, lse=False,
+            o_f32=False):
     """One forward launch; returns o, or (o, lse [B, H, Sq] f32) with
-    ``lse=True``."""
+    ``lse=True``.  o is in q's dtype, or f32 with ``o_f32`` (the bf16
+    route's normalized accumulator before it is rounded)."""
     from repro_torch.kernels import _build
 
     _check_operands(q, k, v, window)
@@ -90,13 +92,13 @@ def _launch(q, k, v, q_pos, k_pos, *, causal, window, softcap, lse=False):
     dev = q.device
     qp, kp = _positions(q_pos, sq, dev), _positions(k_pos, sk, dev)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    o = torch.empty_like(q)
+    o = torch.empty_like(q, dtype=torch.float32 if o_f32 else q.dtype)
     row_lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev) if lse else None
     lib = _build.load_library("striped_attention")
     P = _build.ptr
     err = lib.repro_striped_attention(
         P(q), P(k), P(v), P(qp), P(kp), P(o), P(row_lse), b, sq, sk, h, kvh, d,
-        _DTYPE_CODE[q.dtype], *_mask_args(causal, window, softcap),
+        _DTYPE_CODE[q.dtype], int(bool(o_f32)), *_mask_args(causal, window, softcap),
         1.0 / math.sqrt(d), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, "striped_attention", err)
@@ -196,9 +198,11 @@ def striped_flash_attention_lse(q, k, v, q_pos, k_pos, *, causal: bool = True,
                                 window: Optional[int] = None,
                                 softcap: Optional[float] = None):
     """K4 with its row statistics: one launch that also writes each row's
-    log-sum-exp.  Returns (o [B, Sq, H, D] in q's dtype, lse [B, H, Sq]
+    log-sum-exp.  Returns (o [B, Sq, H, D] f32 — for bf16 operands the
+    normalized accumulator, never rounded to bf16 — and lse [B, H, Sq]
     f32); a row with no key gets o = 0 and lse = +inf.  On a CPU tensor the
-    plain forward with its LSE (`ref.striped_flash_attention_ref_lse`).
+    plain forward with its LSE (`ref.striped_flash_attention_ref_lse`, o in
+    the accumulation type).
     Refuses inputs that require grad: the ESP ring's partials are serving
     math (training goes through `StripedFlashAttentionFn`)."""
     from repro_torch.kernels import refuse_grad
@@ -206,7 +210,8 @@ def striped_flash_attention_lse(q, k, v, q_pos, k_pos, *, causal: bool = True,
     refuse_grad("striped_flash_attention_lse", q, k, v)
     kw = dict(causal=causal, window=window, softcap=softcap)
     if q.device.type == "cpu":
-        return striped_flash_attention_ref_lse(q, k, v, q_pos, k_pos, **kw)
-    out = _launch(q, k, v, q_pos, k_pos, lse=True, **kw)
+        return striped_flash_attention_ref_lse(q, k, v, q_pos, k_pos,
+                                               o_acc=True, **kw)
+    out = _launch(q, k, v, q_pos, k_pos, lse=True, o_f32=True, **kw)
     launch_counts["striped_flash_attention"] += 1
     return out

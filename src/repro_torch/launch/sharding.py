@@ -264,13 +264,16 @@ def make_constrain(cfg, mesh, kind: str) -> Callable:
         pl = placements(mesh, spec, x.ndim)
         # a dim its axes do not divide (a [B, 1, d] decode activation under
         # the prefill rule) stays whole: GSPMD pads such a dim, DTensor
-        # would hand some ranks an empty shard
+        # would hand some ranks an empty shard.  A size-1 axis splits
+        # nothing and stays replicated too (some torch releases refuse to
+        # flatten a dim "sharded" over it, e.g. a B 1 batch)
         ways: Dict[int, int] = {}
         for i, p in enumerate(pl):
             if p.is_shard():
                 ways[p.dim] = ways.get(p.dim, 1) * sizes[names[i]]
         for i, p in enumerate(pl):
-            if p.is_shard() and x.shape[p.dim] % ways[p.dim]:
+            if p.is_shard() and (x.shape[p.dim] % ways[p.dim]
+                                 or sizes[names[i]] == 1):
                 pl[i] = Replicate()
         if list(x.placements) == pl:
             return x

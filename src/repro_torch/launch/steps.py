@@ -18,20 +18,23 @@ jitted step does.  On the card every attention layer of the train step's
 forward and backward runs K4 (`kernels/striped_attention.py`): its
 `StripedFlashAttentionFn` forward and hand-written backward.
 
-On a `DeviceMesh` (dense, hybrid and ssm families) the steps run the
-reference's global-view code over DTensors: parameters, inputs and
-optimizer state are distributed by the spec rules (`launch.sharding`;
-`param_specs`, `input_shardings`, `zero1_specs` / `opt_shardings` here),
-the model's `constrain` hook redistributes activations, prefill and decode
-attention is `core.esp.ESPAttnImpl` (the striped ring through K4, the
-multi-master decode through K5, the recurrent layers' handoff) and the
-train step's is `core.esp.ShardedAttnImpl` (K4 forward and backward per
-shard).  The train step is data-parallel over the batch axes and
-tensor-parallel over "model", with ZeRO-1: the AdamW moments are sharded
-over "data" (`zero1_specs`), the gradient is reduce-scattered into that
-layout, the local shard updated and the parameter all-gathered back.
-moe, vlm and audio (encoder-decoder) models on a mesh are ROADMAP item
-14.1b and raise.
+On a `DeviceMesh` (every family) the steps run the reference's
+global-view code over DTensors: parameters, inputs and optimizer state are
+distributed by the spec rules (`launch.sharding`; `param_specs`,
+`input_shardings`, `zero1_specs` / `opt_shardings` here), the model's
+`constrain` hook redistributes activations, prefill and decode attention is
+`core.esp.ESPAttnImpl` (the striped ring through K4, the multi-master
+decode through K5, the recurrent layers' handoff) and the train step's is
+`core.esp.ShardedAttnImpl` (K4 forward and backward per shard).  moe
+routes globally and shards its grouped buffer by ``"moe_group"`` /
+``"moe_hidden"`` (`models.moe.apply_moe`); vlm concatenates its
+sequence-sharded image and text embeddings, image first; the audio
+encoder-decoder runs its encoder batch-sharded and its cross-attention
+against the replicated encoder output.  The train step is data-parallel
+over the batch axes and tensor-parallel over "model", with ZeRO-1: the
+AdamW moments are sharded over "data" (`zero1_specs`), the gradient is
+reduce-scattered into that layout, the local shard updated and the
+parameter all-gathered back.
 """
 from __future__ import annotations
 
@@ -49,10 +52,6 @@ from repro_torch.models.transformer import Cache, torch_dtype
 
 B1, B2, EPS = 0.9, 0.95, 1e-8  # the reference's AdamW constants
 
-#: the families whose steps run on a mesh; the others are ROADMAP item 14.1b
-MESH_FAMILIES = ("dense", "hybrid", "ssm")
-
-
 def build_model_for(cfg: ModelConfig, mesh, kind: str, *, esp: bool = True,
                     remat: bool = False, dop: Optional[int] = None,
                     esp_opts: Optional[dict] = None, device="cuda"):
@@ -64,10 +63,6 @@ def build_model_for(cfg: ModelConfig, mesh, kind: str, *, esp: bool = True,
     `ShardedAttnImpl`."""
     if mesh is None:
         return build_model(cfg, remat=remat, device=device)
-    if cfg.family not in MESH_FAMILIES or cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) on a mesh: moe, vlm and audio "
-            "models on a mesh are ROADMAP.md item 14.1b; pass mesh=None")
     from repro_torch.core.esp import ESPAttnImpl, ShardedAttnImpl
 
     names = tuple(mesh.mesh_dim_names)

@@ -12,7 +12,13 @@ and the cross-attention are plain `attention.full_attention`, as the
 reference computes them outside any kernel.  ``remat`` recomputes each
 encoder and decoder layer in the backward, where the reference wraps both
 scan bodies in ``jax.checkpoint``; ``constrain`` is the sharding-hint hook
-(the identity without a mesh).
+(the identity without a mesh).  On a mesh (DTensors) the encoder runs
+batch-sharded through ``enc_act``, its output is replicated over "data"
+(``enc_out``), the decoder's self-attention is the mesh impl's (the ESP
+ring / multi-master decode, or `ShardedAttnImpl` in training) and the
+encoder and cross attention stay plain attention, per shard
+(`_plain_attention`), as the reference leaves them to the SPMD
+partitioner.
 """
 from __future__ import annotations
 
@@ -28,11 +34,52 @@ from repro_torch.models.transformer import (
     Cache,
     DefaultAttnImpl,
     _id_constrain,
+    _last_position,
     _lead,
     layer_params,
     maybe_remat,
     torch_dtype,
 )
+
+
+def _plain_attention(q, k, v):
+    """Non-causal attention without a mask (the encoder's self-attention
+    and the cross-attention): `attention.full_attention`.  Over DTensors it
+    runs per shard in a `local_map` body, as the reference leaves it to the
+    SPMD partitioner: each rank's (batch, q-head) block attends to the whole
+    key sequence of its KV heads (a sequence-split q sees the keys
+    gathered), and the output keeps q's layout.  The einsums' flattens of a
+    head- or sequence-split dim have no sharding rule in some torch
+    releases, so they never see a DTensor."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    if not isinstance(q, DTensor):
+        return attn.full_attention(q, k, v, causal=False)
+    mesh = q.device_mesh
+    q_pl, kv_pl, grad_pl = [], [], []
+    for i, p in enumerate(q.placements):
+        if p.is_shard(0) or (p.is_shard(2) and k.shape[2] % mesh.size(i) == 0):
+            q_pl.append(p)  # batch, or heads the KV heads follow
+            kv_pl.append(p)
+            grad_pl.append(p)
+        elif p.is_shard(1):  # q rows split: every key on every rank
+            q_pl.append(p)
+            kv_pl.append(Replicate())
+            grad_pl.append(Partial())
+        else:
+            q_pl.append(Replicate())
+            kv_pl.append(Replicate())
+            grad_pl.append(Replicate())
+    q_pl, kv_pl, grad_pl = tuple(q_pl), tuple(kv_pl), tuple(grad_pl)
+    k, v = (x if isinstance(x, DTensor) else
+            DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+            for x in (k, v))
+    fn = local_map(lambda qb, kb, vb: attn.full_attention(qb, kb, vb, causal=False),
+                   out_placements=(q_pl,), in_placements=(q_pl, kv_pl, kv_pl),
+                   in_grad_placements=(q_pl, grad_pl, grad_pl), device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(q, k, v)
 
 
 class EncDecModel(nn.Module):
@@ -55,12 +102,13 @@ class EncDecModel(nn.Module):
     # ------------------------------------------------------------- attention
     def _proj(self, x, w):
         """[B,T,d] x [d,H,hd] -> [B,T,H,hd]."""
-        return (x @ w.reshape(w.shape[0], -1)).view(
+        return layers.dense(x, w.reshape(w.shape[0], -1)).view(
             x.shape[0], x.shape[1], w.shape[1], w.shape[2])
 
     def _out(self, o, w):
         """[B,T,H,hd] x [H,hd,d] -> [B,T,d]."""
-        return o.reshape(o.shape[0], o.shape[1], -1) @ w.reshape(-1, w.shape[-1])
+        return layers.dense(o.reshape(o.shape[0], o.shape[1], -1),
+                            w.reshape(-1, w.shape[-1]))
 
     def _qkv(self, p, xq, xkv):
         c = self.constrain
@@ -84,7 +132,7 @@ class EncDecModel(nn.Module):
         cfg = self.cfg
         h = layers.apply_norm(lp["norm1"], x, cfg.norm_kind, cfg.norm_eps)
         q, k, v = self._qkv(lp["attn"], h, h)
-        o = attn.full_attention(q, k, v, causal=False)
+        o = _plain_attention(q, k, v)
         x = x + self._out(o, lp["attn"]["wo"])
         h = layers.apply_norm(lp["norm2"], x, cfg.norm_kind, cfg.norm_eps)
         return self.constrain(x + layers.apply_ffn(lp["ffn"], h, cfg.ffn_kind),
@@ -140,7 +188,7 @@ class EncDecModel(nn.Module):
             q = self._proj(h, lp["cross_attn"]["wq"])
         else:
             q, ck, cv = self._qkv(lp["cross_attn"], h, enc_out)
-        o = attn.full_attention(q, ck, cv, causal=False)
+        o = _plain_attention(q, ck, cv)
         x = self.constrain(x + self._out(o, lp["cross_attn"]["wo"]), "act")
         h = layers.apply_norm(lp["norm3"], x, cfg.norm_kind, cfg.norm_eps)
         x = self.constrain(x + layers.apply_ffn(lp["ffn"], h, cfg.ffn_kind), "act")
@@ -148,7 +196,8 @@ class EncDecModel(nn.Module):
 
     def _embed_tokens(self, params, tokens, positions):
         x = layers.embed_lookup(params["embed"], tokens).to(self.dtype)
-        pe = params["pos_embed"][positions].to(self.dtype)
+        # F.embedding, not an index: its gradient has a sharding rule
+        pe = layers.embed_lookup(params["pos_embed"], positions).to(self.dtype)
         if pe.ndim == 2:
             pe = pe[None]
         return self.constrain(x + pe, "act")
@@ -188,8 +237,7 @@ class EncDecModel(nn.Module):
         x, (k, v), (ck, cv) = self._decoder_stack(params, x, enc_out, positions)
         x = self._final(params, x)
         if last_logit_only:
-            pos = torch.as_tensor(positions, device=x.device).expand(t)
-            x = x[:, int(torch.argmax(pos))][:, None, :]
+            x = _last_position(x, positions)
         cache = Cache(k=k, v=v,
                       length=torch.full((b,), t, dtype=torch.int32,
                                         device=x.device),

@@ -85,18 +85,35 @@ def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
 # ---------------------------------------------------------------- FFN
 
 
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for x [B, T, K] and w [K, N].  The matmul flattens x's
+    leading dims; over a DTensor whose T dim is split and whose B dim (of
+    more than one row) is not (the prefill activations, seq over "data")
+    that flatten has no sharding rule in some torch releases (even over a
+    size-1 mesh axis), so the product runs on a contiguous T-leading copy
+    (a strided one would make the matmul broadcast w over T instead of
+    flattening).  A plain tensor is ``x @ w``."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor) and x.ndim == 3 and x.shape[0] > 1:
+        split = {p.dim for p in x.placements if p.is_shard()}
+        if 1 in split and 0 not in split:
+            return (x.transpose(0, 1).contiguous() @ w).transpose(0, 1)
+    return x @ w
+
+
 def apply_ffn(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "swiglu":
-        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+        h = F.silu(dense(x, p["w_gate"])) * dense(x, p["w_up"])
     elif kind == "relu2":
-        r = F.relu(x @ p["w_up"])
+        r = F.relu(dense(x, p["w_up"]))
         h = r * r
     elif kind == "gelu":
         # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(x @ p["w_up"], approximate="tanh")
+        h = F.gelu(dense(x, p["w_up"]), approximate="tanh")
     else:  # pragma: no cover
         raise ValueError(kind)
-    return h @ p["w_down"]
+    return dense(h, p["w_down"])
 
 
 # ---------------------------------------------------------------- embeddings
@@ -112,4 +129,4 @@ def lm_head_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """[..., d] x [d, vocab] -> f32 logits (softmax stability).  Operands are
     widened to f32: bf16 products are exact in f32, so this is the
     reference's ``preferred_element_type=f32`` product."""
-    return x.float() @ w.float()
+    return dense(x.float(), w.float())

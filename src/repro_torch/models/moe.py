@@ -16,6 +16,21 @@ are dropped.  Token parity with the reference rests on three details:
 
 The expert products are plain batched matmuls outside any kernel, as the
 reference leaves them to XLA.
+
+On a mesh ``x`` is a DTensor and ``constrain`` the mesh's sharding hook
+(`launch.sharding.make_constrain`), applied where the reference applies
+it: the grouped buffer and the expert output to ``"moe_group"``, the
+expert hidden to ``"moe_hidden"`` — experts over "model" where it divides
+E, else TP inside each expert.  The routing is the reference's *global*
+routing (capacity from the global token count, the S-major order that
+decides the drops): the tokens (`tokens_s_major`) and the router logits
+[T, E] are gathered whole on every rank; the sort, the counts and both
+scatters run on those replicated plain tensors (identical on every rank,
+so no DTensor sharding rule is involved); the buffer enters the mesh as a
+replicated DTensor that ``constrain`` slices into its layout.  The expert
+output is gathered whole for the combine, whose result re-enters as a
+replicated DTensor, as does the aux loss (``dropped_frac`` stays a plain
+tensor, the same on every rank).
 """
 from __future__ import annotations
 
@@ -45,17 +60,46 @@ def _expert_act(up, gate, ffn_kind: str):
     return F.gelu(up, approximate="tanh")  # jax.nn.gelu's default
 
 
+def _spread(a, mesh):
+    """A plain tensor, the same on every rank, as a replicated DTensor."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    return DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def tokens_s_major(x: torch.Tensor) -> torch.Tensor:
+    """[B, S, d] -> the S-major token matrix [S * B, d] that `apply_moe`
+    routes (the order decides which assignments capacity drops).  A
+    DTensor is replicated first: the routing gathers every token anyway,
+    and a flatten over a sharded dim has no sharding rule in some torch
+    releases (a size-1 mesh dim included)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(x, DTensor):
+        x = x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+    b, s, d = x.shape
+    return x.transpose(0, 1).reshape(b * s, d)
+
+
 def apply_moe(p: dict, x: torch.Tensor, *, top_k: int, capacity_factor: float,
-              ffn_kind: str) -> MoEOutput:
-    """x [T, d] flat tokens -> MoEOutput(out [T, d] in x.dtype, aux, dropped)."""
+              ffn_kind: str, constrain=None) -> MoEOutput:
+    """x [T, d] flat tokens -> MoEOutput(out [T, d] in x.dtype, aux, dropped).
+    ``constrain(tensor, tag)`` is the sharding hook (the identity without
+    a mesh)."""
+    from torch.distributed.tensor import DTensor
+
     t, d = x.shape
     e = p["router"].shape[1]
     cap = capacity(t, e, top_k, capacity_factor)
-    dev = x.device
+    cid = constrain or (lambda a, _k: a)
+    mesh = x.device_mesh if isinstance(x, DTensor) else None
 
     # f32 router logits: bf16 products are exact in f32 (the reference's
     # preferred_element_type=f32)
     logits = x.float() @ p["router"].float()
+    if mesh is not None:  # route globally on the replicated [T, E] logits
+        logits, x = logits.full_tensor(), x.full_tensor()
+    dev = x.device
     probs = torch.softmax(logits, dim=-1)  # [T, E] f32
     top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_p, top_i = top_p[:, :top_k], top_i[:, :top_k]
@@ -80,18 +124,28 @@ def apply_moe(p: dict, x: torch.Tensor, *, top_k: int, capacity_factor: float,
                                                         device=dev))
     buf = torch.zeros((e, cap, d), dtype=x.dtype, device=dev)
     buf.index_put_((se, slot), xin, accumulate=True)
+    if mesh is not None:
+        buf = _spread(buf, mesh)
+    buf = cid(buf, "moe_group")  # [E, C, d] - EP sharding hint
 
     # ---- expert FFN on grouped tokens ----
     up = torch.bmm(buf, p["w_up"])
     gate = torch.bmm(buf, p["w_gate"]) if ffn_kind == "swiglu" else None
-    eout = torch.bmm(_expert_act(up, gate, ffn_kind), p["w_down"])  # [E, C, d]
+    h = cid(_expert_act(up, gate, ffn_kind), "moe_hidden")
+    eout = cid(torch.bmm(h, p["w_down"]), "moe_group")  # [E, C, d]
+    if mesh is not None:
+        eout = eout.full_tensor()
 
     # ---- combine back (weighted scatter-add into tokens) ----
     contrib = eout[se, slot] * (sw * keep).to(eout.dtype)[:, None]  # [T*k, d]
     out = torch.zeros((t, d), dtype=contrib.dtype, device=dev)
     out.index_put_((st,), contrib, accumulate=True)
+    if mesh is not None:
+        out = _spread(out, mesh)
 
     # Switch-transformer load-balance aux: E * sum(frac_tokens * frac_prob)
     frac_tokens = counts.float() / (t * top_k)
     aux = e * torch.sum(frac_tokens * probs.mean(dim=0))
+    if mesh is not None:  # its gradient then arrives as a DTensor
+        aux = _spread(aux, mesh)
     return MoEOutput(out.to(x.dtype), aux, dropped)

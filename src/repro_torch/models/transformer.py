@@ -182,9 +182,9 @@ class Model(nn.Module):
         cfg = self.cfg
         b, t, d = x.shape
         hd = cfg.head_dim
-        q = (x @ p["wq"].reshape(d, -1)).view(b, t, cfg.n_heads, hd)
-        k = (x @ p["wk"].reshape(d, -1)).view(b, t, cfg.n_kv_heads, hd)
-        v = (x @ p["wv"].reshape(d, -1)).view(b, t, cfg.n_kv_heads, hd)
+        q = layers.dense(x, p["wq"].reshape(d, -1)).view(b, t, cfg.n_heads, hd)
+        k = layers.dense(x, p["wk"].reshape(d, -1)).view(b, t, cfg.n_kv_heads, hd)
+        v = layers.dense(x, p["wv"].reshape(d, -1)).view(b, t, cfg.n_kv_heads, hd)
         if cfg.qkv_bias:
             q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
         if cfg.rope_theta:
@@ -198,7 +198,7 @@ class Model(nn.Module):
     def _out_proj(self, p, out):
         b, t = out.shape[0], out.shape[1]
         out = self.constrain(out, "attn_out")
-        return out.reshape(b, t, -1) @ p["wo"].reshape(-1, self.cfg.d_model)
+        return layers.dense(out.reshape(b, t, -1), p["wo"].reshape(-1, self.cfg.d_model))
 
     def _attn_block_prefill(self, p, x, positions):
         cfg = self.cfg
@@ -226,12 +226,12 @@ class Model(nn.Module):
         if cfg.family != "moe":
             return layers.apply_ffn(p["ffn"], x, cfg.ffn_kind), 0.0
         b, s = x.shape[0], x.shape[1]
-        # S-major flatten, as the reference (its sharding reason does not
-        # apply here; the order decides which tokens capacity drops)
-        flat = x.transpose(0, 1).reshape(b * s, cfg.d_model)
+        # S-major flatten, as the reference: the order decides which tokens
+        # capacity drops
+        flat = moe.tokens_s_major(x)
         mo = moe.apply_moe(p["moe"], flat, top_k=cfg.moe_top_k,
                            capacity_factor=cfg.moe_capacity_factor,
-                           ffn_kind=cfg.ffn_kind)
+                           ffn_kind=cfg.ffn_kind, constrain=self.constrain)
         y = mo.out.reshape(s, b, cfg.d_model).transpose(0, 1)
         if cfg.dense_ff:
             y = y + layers.apply_ffn(p["dense_ffn"], x, cfg.ffn_kind)

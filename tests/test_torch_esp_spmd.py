@@ -16,17 +16,23 @@ to the JAX package.
   (d) `core.ssm_sp`'s three functions at B 2, S 128 against the
       reference's `_sp` functions and its single-device forwards, 1e-4;
   (e) the mesh-aware prefill / decode steps on (4, 2) and (2, 2) for
-      reduced lwm-7b, glm4-9b, zamba2-2.7b and xlstm-350m (next tokens
+      reduced lwm-7b, glm4-9b, zamba2-2.7b, xlstm-350m, mixtral-8x7b,
+      arctic-480b, pixtral-12b and whisper-tiny (next tokens
       equal the reference's ``mesh=None`` step's; logits and cache within
       1e-4), and two ZeRO-1 train steps with 2 microbatches on (2, 2) (the
       loss within 1e-5 relative, parameters within PR 18's AdamW rule, each
       rank's local moment shard equal to its block of the reference's
-      moments); moe, vlm and audio models on a mesh raise;
+      moments); the moe (mixtral, arctic, a capacity-bound and a 3-expert
+      variant), vlm (pixtral) and audio (whisper) steps likewise, and held
+      to the reference's own mesh-aware steps on its (4, 2) Auto mesh;
+      `apply_moe` alone on the mesh against the reference's global
+      routing (dropped fraction, aux loss, output, gradients);
   (f) every replicated output is identical on every rank.
 
 The torch ranks are spawned by `tests/torch_esp_cases.py` — one world of 8
 ranks and one of 4 — and import only `repro_torch`.
 """
+import concurrent.futures
 import os
 import pathlib
 import pickle
@@ -164,14 +170,23 @@ def test_specs_match_reference(arch, mesh_shape, axes):
 
 
 @pytest.mark.parametrize("arch", MESH_ONLY_LATER)
-def test_mesh_later_families_raise(arch):
-    """moe, vlm and audio models on a mesh are ROADMAP item 14.1b."""
-    cfg = T_REGISTRY[arch]
-    mesh = MeshShape((2, 2), ("data", "model"))
-    for make in (tsteps.make_prefill_step, tsteps.make_decode_step,
-                 tsteps.make_train_step):
-        with pytest.raises(NotImplementedError, match="14.1b"):
-            make(cfg, mesh, device="cpu")
+def test_mesh_later_families_raise(worlds, arch):
+    """moe, vlm and audio models on a mesh — which raised until ROADMAP
+    item 14.1b was ported — now build and run on both worlds: prefill and
+    decode through `ESPAttnImpl`, train through `ShardedAttnImpl`, next
+    tokens equal to the reference's ``mesh=None`` steps'; and nothing in
+    the port names the item any more."""
+    for world, n_data in (("8", C.MESH8[0]), ("4", C.MESH4[0])):
+        for res in worlds["w" + world]:
+            got = res["steps" + world][arch]
+            assert got["impls"] == {"prefill": "ESPAttnImpl", "decode": "ESPAttnImpl",
+                                    "train": "ShardedAttnImpl"}
+            np.testing.assert_array_equal(got["prefill_token"],
+                                          worlds["steps"][arch][n_data]["token"])
+            np.testing.assert_array_equal(got["decode"]["next_token"],
+                                          worlds["steps"][arch]["decode"]["next_token"])
+    assert not any("14.1b" in f.read_text()
+                   for f in (ROOT / "src" / "repro_torch").rglob("*.py"))
 
 
 # ============================================ ops.attention_partial (K4)
@@ -223,6 +238,30 @@ def test_attention_partial_matches_reference(name):
         ops.attention_partial(q_t, *(torch.from_numpy(x) for x in (k, v, qp, kp)))
 
 
+def test_attention_partial_is_f32_for_bf16():
+    """The ring step's partial keeps K4's normalized accumulator in f32 for
+    bf16 operands (the reference merges f32 partials): on the CPU the plain
+    version's o is the f32 attention of the bf16 values, never rounded to
+    bf16; the serving / training entry keeps the operands' dtype."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import striped_attention as tsa
+
+    b, sq, h, kvh, d, r, c, window, softcap = PARTIAL_CASES["striped_window_gqa"]
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.normal(size=shp).astype(np.float32)).to(torch.bfloat16)
+               for shp in ((b, sq, h, d), (b, sq, kvh, d), (b, sq, kvh, d)))
+    qp = torch.from_numpy((np.arange(sq) * 4 + r).astype(np.int32))
+    kp = torch.from_numpy((np.arange(sq) * 4 + c).astype(np.int32))
+    kw = dict(causal=True, window=window, softcap=softcap)
+    part = ops.attention_partial(q, k, v, qp, kp, **kw)
+    assert part.o.dtype == part.m.dtype == part.l.dtype == torch.float32
+    want = tsa.striped_flash_attention(q.float(), k.float(), v.float(), qp, kp, **kw)
+    fin = part.o / torch.where(part.l == 0, 1.0, part.l)[..., None]
+    np.testing.assert_allclose(fin.numpy(), want.numpy(), rtol=0, atol=ATTN_TOL)
+    assert not torch.equal(fin, fin.to(torch.bfloat16).float())  # not rounded
+    assert tsa.striped_flash_attention(q, k, v, qp, kp, **kw).dtype == torch.bfloat16
+
+
 # ============================================================== the worlds
 def _ssm_inputs():
     key = jax.random.PRNGKey(0)
@@ -244,69 +283,107 @@ def _ssm_inputs():
 
 
 def _step_refs(arch):
-    """The reference's ``mesh=None`` prefill / decode steps of one arch:
-    inputs for the ranks and the expected outputs."""
+    """The reference's ``mesh=None`` prefill / decode steps of one step
+    case: (inputs for the ranks, a function that computes the expected
+    outputs — called while the ranks run)."""
     cfg = C.step_cfg(arch, "repro")
     model, prefill = jsteps.make_prefill_step(cfg, None)
     params = model.init(jax.random.PRNGKey(0))
-    rng = np.random.default_rng(11)
-    prompt = rng.integers(0, cfg.vocab_size, (C.B_STEP, C.S_STEP)).astype(np.int32)
+    inp = C.step_inputs(arch)
+    # decode: the cache of a B_DEC-prompt prefill, ragged lengths
+    flat = C.ref_decode_cache(arch, params, inp)
+    payload = dict(params=jax.tree.map(np.asarray, params), inputs=inp, dcache=flat)
+    return payload, lambda: _step_want(arch, cfg, model, prefill, params, inp, flat)
+
+
+def _step_want(arch, cfg, model, prefill, params, inp, flat):
     pre = jax.jit(prefill)
     logit_fn = jax.jit(lambda b, p, prm: model.prefill(prm, b, p, last_logit_only=True)[0])
     want = {}
     for n_data in (C.MESH8[0], C.MESH4[0]):
         perm, pos = C.step_layout(arch, n_data)
-        batch = {"tokens": jnp.asarray(prompt[:, perm])}
+        batch = {k: jnp.asarray(v) for k, v in
+                 dict(inp["extra"], tokens=inp["prompt"][:, perm]).items()}
         nt, cache = pre(batch, jnp.asarray(pos), params)
         want[n_data] = dict(token=np.asarray(nt),
                             logits=np.asarray(logit_fn(batch, jnp.asarray(pos), params)),
                             cache=jax.tree.map(np.asarray, cache._asdict()))
-    # decode: the cache of a B_DEC-prompt prefill, ragged lengths
-    dprompt = rng.integers(0, cfg.vocab_size, (C.B_DEC, C.S_STEP)).astype(np.int32)
-    _, dc = pre({"tokens": jnp.asarray(dprompt)}, jnp.arange(C.S_STEP), params)
-    flat = {"length": rng.integers(C.S_STEP - 12, C.S_STEP + 1, C.B_DEC).astype(np.int32)}
-    if dc.k is not None:
-        flat["k"], flat["v"] = np.asarray(dc.k), np.asarray(dc.v)
-    if cfg.family == "hybrid":
-        flat["ssm_h"], flat["ssm_conv"] = np.asarray(dc.ssm.h), np.asarray(dc.ssm.conv)
-    if cfg.family == "ssm":
-        m, s = dc.ssm
-        flat.update(xl_c=m.c, xl_n=m.n, xl_m=m.m, sl_c=s.c, sl_n=s.n, sl_h=s.h, sl_m=s.m)
-        flat = {k: np.asarray(v) for k, v in flat.items()}
-    dtokens = rng.integers(0, cfg.vocab_size, C.B_DEC).astype(np.int32)
     _, dstep = jsteps.make_decode_step(cfg, None)
-    dout = jax.jit(dstep)(jnp.asarray(dtokens), {k: jnp.asarray(v) for k, v in flat.items()},
-                          params)
+    dout = jax.jit(dstep)(jnp.asarray(inp["dtokens"]),
+                          {k: jnp.asarray(v) for k, v in flat.items()}, params)
     want["decode"] = {k: np.asarray(v) for k, v in dout.items()}
-    payload = dict(params=jax.tree.map(np.asarray, params), prompt=prompt,
-                   dcache=flat, dtokens=dtokens)
-    return payload, want
+    return want
+
+
+def _moe_refs():
+    """The `MOE_CASES` variants: (inputs for the ranks, a function that
+    computes the reference's `apply_moe` (``mesh=None``) on each
+    variant's layer-0 parameters — output, aux loss, dropped fraction, and
+    the gradients of ``sum(out * w) + aux``)."""
+    payload, cases = {}, {}
+    for variant, c in C.moe_inputs().items():
+        cfg = C.step_cfg(f"mixtral-8x7b:{variant}", "repro")
+        params = j_build_model(cfg).init(jax.random.PRNGKey(0))
+        payload[variant] = dict(c, params=jax.tree.map(np.asarray, params))
+        cases[variant] = (cfg, params, c)
+    return payload, lambda: {v: _moe_want(*a) for v, a in cases.items()}
+
+
+def _moe_want(cfg, params, c):
+    from repro.models import moe as jmoe
+
+    p0 = jax.tree.map(lambda a: a[0], params["layers"]["moe"])
+    b, s, d = c["x"].shape
+
+    def run(x, p):
+        flat = jnp.swapaxes(x, 0, 1).reshape(b * s, d)
+        return jmoe.apply_moe(p, flat, top_k=cfg.moe_top_k,
+                              capacity_factor=cfg.moe_capacity_factor,
+                              ffn_kind=cfg.ffn_kind)
+
+    def objective(x, p):
+        mo = run(x, p)
+        return jnp.sum(mo.out * c["w"]) + mo.aux_loss
+
+    x = jnp.asarray(c["x"])
+    mo = run(x, p0)
+    gx, gp = jax.grad(objective, argnums=(0, 1))(x, p0)
+    return dict(out=np.asarray(mo.out), aux=float(mo.aux_loss),
+                dropped=float(mo.dropped_frac),
+                grads=dict(x=np.asarray(gx), **{k: np.asarray(v) for k, v in gp.items()}))
 
 
 def _train_refs(arch):
+    """(inputs for the ranks, a function that runs the reference's two
+    ``mesh=None`` train steps)."""
     cfg = C.step_cfg(arch, "repro")
     model, step = jsteps.make_train_step(cfg, None, loss_chunk=16,
                                          microbatches=C.MICRO)
     params = model.init(jax.random.PRNGKey(0))
     opt = jsteps.init_opt_state(params)
     batch = TC.batch_for(cfg, b=C.B_TRAIN, t=C.T_TRAIN)
-    jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    step = jax.jit(step)
-    outs, p, o = [], params, opt
-    for _ in range(2):
-        p, o, met = step(p, o, jb)
-        outs.append((jax.tree.map(np.asarray, p), jax.tree.map(np.asarray, o),
-                     {k: float(v) for k, v in met.items()}))
+
+    def want():
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        fn = jax.jit(step)
+        outs, p, o = [], params, opt
+        for _ in range(2):
+            p, o, met = fn(p, o, jb)
+            outs.append((jax.tree.map(np.asarray, p), jax.tree.map(np.asarray, o),
+                         {k: float(v) for k, v in met.items()}))
+        return outs
+
     payload = dict(params=jax.tree.map(np.asarray, params),
                    opt=jax.tree.map(np.asarray, opt), batch=batch)
-    return payload, outs
+    return payload, want
 
 
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     """Everything that runs in other processes, started together: the
     reference's SPMD code on 8 virtual devices, the torch world of 8 ranks
-    and the torch world of 4 ranks."""
+    and the torch world of 4 ranks (the reference's expected outputs are
+    computed here meanwhile)."""
     tmp = tmp_path_factory.mktemp("esp")
     inputs = C.make_inputs()
     inputs["ssm"] = _ssm_inputs()
@@ -321,15 +398,21 @@ def worlds(tmp_path_factory):
          f"import torch_esp_cases as C; C.jax_reference({str(inp)!r}, {str(outp)!r})"],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
-        steps_in, steps_want = {}, {}
+        steps_in, train_in, later = {}, {}, {}
         for arch in C.STEP_ARCHS:
-            steps_in[arch], steps_want[arch] = _step_refs(arch)
-        train_in, train_want = {}, {}
+            steps_in[arch], later["steps", arch] = _step_refs(arch)
         for arch in C.TRAIN_ARCHS:
-            train_in[arch], train_want[arch] = _train_refs(arch)
-        payload = dict(inputs, steps=steps_in, train=train_in)
-        w8 = C.spawn(8, ["attn", "ssm", "steps8"], payload, tmp, timeout=420)
-        w4 = C.spawn(4, ["steps4", "train4"], payload, tmp, timeout=420)
+            train_in[arch], later["train", arch] = _train_refs(arch)
+        moe_in, later["moe"] = _moe_refs()
+        payload = dict(inputs, steps=steps_in, train=train_in, moe=moe_in)
+        # both worlds run while this process computes the expected outputs
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            f8 = pool.submit(C.spawn, 8, ["attn", "ssm", "steps8", "moe8"], payload,
+                             tmp, timeout=420)
+            f4 = pool.submit(C.spawn, 4, ["steps4", "moe4", "train4"], payload, tmp,
+                             timeout=420)
+            want = {key: fn() for key, fn in later.items()}
+            w8, w4 = f8.result(), f4.result()
         out, err = proc.communicate(timeout=600)
     finally:
         if proc.poll() is None:
@@ -338,8 +421,9 @@ def worlds(tmp_path_factory):
     assert proc.returncode == 0, out + err
     with open(outp, "rb") as f:
         jout = pickle.load(f)
-    return dict(inputs=inputs, jax=jout, w8=w8, w4=w4, steps=steps_want,
-                train=train_want)
+    return dict(inputs=inputs, jax=jout, w8=w8, w4=w4,
+                steps={a: want["steps", a] for a in C.STEP_ARCHS},
+                train={a: want["train", a] for a in C.TRAIN_ARCHS}, moe=want["moe"])
 
 
 def _same_on_every_rank(results, get):
@@ -487,13 +571,20 @@ def test_prefill_step(worlds, arch, world):
     assert set(gc) == set(wc), (sorted(gc), sorted(wc))
     for key in wc:
         np.testing.assert_allclose(gc[key], wc[key], rtol=0, atol=STEP_TOL, err_msg=key)
+    if world == "8" and arch in C.MESH_REF_ARCHS:
+        # the reference's own mesh-aware prefill on the (4, 2) Auto mesh
+        ref = worlds["jax"]["steps"][arch]
+        np.testing.assert_array_equal(got["prefill_token"], ref["token"])
+        np.testing.assert_allclose(got["prefill_logits"], ref["logits"], rtol=0, atol=STEP_TOL)
+        for key, w in ref["cache"].items():
+            np.testing.assert_allclose(gc[key], w, rtol=0, atol=STEP_TOL, err_msg=key)
     _same_on_every_rank(res, lambda r: r["steps" + world][arch]["prefill_token"])
     counts = got["prefill_counts"]
-    if T_REGISTRY[arch].n_attention_applications:
+    cfg = C.step_cfg(arch)
+    if cfg.n_attention_applications:
         # one K4 partial per ring step per attention layer
-        cfg = C.step_cfg(arch)
         assert counts["attention_partial"] == cfg.n_attention_applications * n_data
-    if T_REGISTRY[arch].family in ("hybrid", "ssm"):
+    if cfg.family in ("hybrid", "ssm"):
         assert counts["ppermute"] > 0  # the recurrent layers' state handoff
 
 
@@ -507,10 +598,49 @@ def test_decode_step(worlds, arch, world):
     np.testing.assert_array_equal(got["next_token"], want["next_token"])
     for key, w in want.items():
         np.testing.assert_allclose(got[key], w, rtol=0, atol=STEP_TOL, err_msg=key)
+    if world == "8" and arch in C.MESH_REF_ARCHS:
+        # the reference's own mesh-aware decode on the (4, 2) Auto mesh
+        for key, w in worlds["jax"]["steps"][arch]["decode"].items():
+            np.testing.assert_allclose(got[key], w, rtol=0, atol=STEP_TOL, err_msg=key)
+        np.testing.assert_array_equal(got["next_token"],
+                                      worlds["jax"]["steps"][arch]["decode"]["next_token"])
     _same_on_every_rank(res, lambda r: r["steps" + world][arch]["decode_token_local"])
     cfg = C.step_cfg(arch)
     counts = res[0]["steps" + world][arch]["decode_counts"]
     assert counts.get("decode_partial", 0) == cfg.n_attention_applications
+
+
+MOE_IDS = [f"{v}-{k}-{w}" for w in ("4x2", "2x2") for v, k in C.MOE_CASES]
+
+
+@pytest.mark.parametrize("case", MOE_IDS)
+def test_moe_routing_on_mesh(worlds, case):
+    """`apply_moe` on the mesh routes globally: its dropped fraction
+    equals the reference's ``mesh=None`` routing's, its aux loss within
+    1e-5 relative (f32 sums), its output within 1e-4, and in the train
+    kind the gradients of ``sum(out * w) + aux`` within 1e-4 of
+    ``jax.grad``'s.  ``drop`` drops assignments; ``e3`` (3 experts over a
+    2-way model axis) runs TP inside each expert."""
+    variant, kind, mesh_id = case.split("-")
+    world = "8" if mesh_id == "4x2" else "4"
+    want = worlds["moe"][variant]
+    got = worlds["w" + world][0]["moe" + world][(variant, kind)]
+    assert got["dropped"] == pytest.approx(want["dropped"], abs=1e-7)
+    if variant == "drop":
+        assert want["dropped"] > 0.05  # the capacity bites
+    assert abs(got["aux"] - want["aux"]) <= 1e-5 * abs(want["aux"])
+    np.testing.assert_allclose(got["out"], want["out"], rtol=0, atol=STEP_TOL)
+    if kind == "train":
+        assert set(got["grads"]) == set(want["grads"])
+        for key, w in want["grads"].items():
+            np.testing.assert_allclose(got["grads"][key], w, rtol=0,
+                                       atol=STEP_TOL * max(np.abs(w).max(), 1.0),
+                                       err_msg=key)
+    _same_on_every_rank(worlds["w" + world],
+                        lambda r: [r["moe" + world][(variant, kind)]["out"]])
+    tcfg = C.step_cfg(f"mixtral-8x7b:{variant}")
+    ep = tcfg.n_experts % C.MESH8[1] == 0
+    assert ep == (variant != "e3")
 
 
 def _block(arr, spec, coords, sizes):

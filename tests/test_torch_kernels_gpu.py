@@ -13,7 +13,9 @@ which costs at most 2^-9 of it, so the normalized output may move by
 2^-9 max|v|; the bound is 1e-4 + 2^-8 max|v| (the factor 2 covers the
 rescale by alpha), and the mean error must stay below 1e-3.  K4 writes bf16
 outputs, so they may also sit one bf16 step apart (2^-7 |plain|).  m keeps
-1e-4 absolute, l 1e-4 relative, and empty rows must match.  The split-K
+1e-4 absolute, l 1e-4 relative, and empty rows must match.  K4's LSE entry
+(the ESP ring step's partial) writes its o in f32 for bf16 operands too, so
+it is held without the bf16 output term.  The split-K
 decode cases (long rows, many rows) hold o / l and m to 1e-4: f32 sums over
 up to 64k keys in another order, merged across splits; so does K5 at
 whisper width, and so do K3 and K2 at the serve CLI's width (f32 sums over
@@ -389,6 +391,54 @@ def test_attention_kernels_at_whisper_width_on_card(cuda_device, dtype):
     got = tfd.flash_decode_partial(q, k, v, lens)
     _close_partial(got, tfd.flash_decode_partial_plain(q, k, v, lens))
     assert torch.isinf(got.m[0]).all() and (got.l[0] == 0).all()
+
+
+# (tag, B, S, H, KVH, D, ring of n shards (1: contiguous), q shard, KV shard)
+K4_LSE_F32_CASES = [("pixtral", 1, 2048, 32, 8, 128, 4, 0, 1),
+                    ("pixtral", 1, 2048, 32, 8, 128, 1, 0, 0),
+                    ("whisper", 4, 448, 6, 6, 64, 4, 2, 1),
+                    ("whisper", 4, 448, 6, 6, 64, 1, 0, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", K4_LSE_F32_CASES,
+                         ids=lambda c: f"{c[0]}-n{c[6]}-q{c[7]}k{c[8]}")
+def test_k4_lse_entry_f32_output_on_card(cuda_device, dtype, case):
+    """K4's LSE entry (the ESP ring step's partial) writes o in f32 for
+    either operand type: at pixtral width (H 32, KVH 8, D 128) and whisper
+    width (H = KVH = 6, D 64, B 4), on a ring step of striped shards (q
+    shard 0 against KV shard 1 has a row with no key) and on contiguous
+    positions.  bf16: o within 1e-4 + 2^-8 max|v| of the plain partial's
+    f32 output (no bf16 output rounding), mean below 1e-3; f32 within
+    2e-5; the LSE within 1e-4, +inf exactly where a row sees no key."""
+    _tag, b, s, h, kvh, d, n, r, c = case
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(21)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+            cuda_device, dt)
+
+    q, k, v = rand(b, s, h, d), rand(b, s, kvh, d), rand(b, s, kvh, d)
+    qp, kp = (torch.as_tensor(np.arange(s) * n + x, dtype=torch.int32, device=cuda_device)
+              for x in (r, c))
+    before = tsa.launch_counts["striped_flash_attention"]
+    o, lse = tsa.striped_flash_attention_lse(q, k, v, qp, kp, causal=True)
+    assert tsa.launch_counts["striped_flash_attention"] == before + 1
+    assert o.dtype == torch.float32 and lse.dtype == torch.float32
+    want_o, want_lse = tref.striped_flash_attention_ref_lse(q, k, v, qp, kp, causal=True,
+                                                            o_acc=True)
+    assert want_o.dtype == torch.float32
+    fin = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(lse), fin) and (lse[~fin] > 0).all()
+    if (r, c) == (0, 1):
+        assert not fin.all()  # the first query precedes every key
+    assert (lse[fin] - want_lse[fin]).abs().max().item() <= 1e-4
+    if dt == torch.bfloat16:
+        _close_tc(o, want_o, v)
+    else:
+        _close(o, want_o, atol=ATOL)
 
 
 # ------------------------------------------- the split-K decode core (K2, K5)

@@ -34,7 +34,7 @@ from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import striped_attention as tsa  # noqa: E402
 from repro_torch.launch import steps as tsteps  # noqa: E402
 
-from torch_train_cases import batch_for, flat, np_  # noqa: E402
+from torch_train_cases import batch_for, flat, hold, np_, setup  # noqa: E402
 
 
 @pytest.fixture(autouse=True)
@@ -311,13 +311,33 @@ def test_prefill_and_decode_steps_match_reference(arch):
                                    err_msg=key)
 
 
-def test_mesh_steps_wait_for_the_dry_run_slice():
-    """The dense, hybrid and ssm steps run on a mesh
-    (tests/test_torch_esp_spmd.py); a moe model on a mesh waits for
-    ROADMAP item 14.1b."""
-    from repro_torch.launch.mesh import MeshShape
+def test_mesh_steps_wait_for_the_dry_run_slice(tmp_path):
+    """A moe model's train step on a mesh — which waited for ROADMAP item
+    14.1b until it was ported — runs: two ZeRO-1 steps of reduced mixtral
+    on a (1, 1) gloo mesh in this process meet the AdamW rule against the
+    reference's ``mesh=None`` jitted step (the (2, 2) world of
+    tests/test_torch_esp_spmd.py holds the sharded case)."""
+    import torch.distributed as dist
 
-    cfg = t_reduced(T_REGISTRY["mixtral-8x7b"])
-    with pytest.raises(NotImplementedError, match="item 14.1b"):
-        tsteps.make_train_step(cfg, MeshShape((2, 2), ("data", "model")),
-                               device="cpu")
+    from repro_torch.launch import sharding as tshard
+    from repro_torch.launch.mesh import init_process_group, make_test_mesh
+
+    (jstep, jp, jo, jb), (_, tp, to, tb) = setup("mixtral-8x7b")
+    init_process_group("cpu", init_method=f"file://{tmp_path / 'pg'}",
+                       world_size=1, rank=0)
+    try:
+        mesh = make_test_mesh(1, 1, device="cpu")
+        tcfg = t_reduced(T_REGISTRY["mixtral-8x7b"])
+        _, mstep = tsteps.make_train_step(tcfg, mesh, loss_chunk=16, device="cpu")
+        params = tsteps.place_params(tcfg, mesh, tp, train=True)
+        opt = tsteps.place_opt_state(tcfg, mesh, to)
+        batch = tshard.distribute(tb, mesh, {k: tshard.P() for k in tb})
+        explained = {}
+        for n in (1, 2):
+            jp, jo, jmet = jstep(jp, jo, jb)
+            params, opt, met = mstep(params, opt, batch)
+            full = tsteps.tree_map(tsteps.full_value, params)
+            mo = {k: tsteps.tree_map(tsteps.full_value, opt[k]) for k in ("m", "v")}
+            hold((jp, jo, jmet), (full, dict(mo, step=opt["step"]), met), n, explained)
+    finally:
+        dist.destroy_process_group()

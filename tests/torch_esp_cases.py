@@ -22,8 +22,24 @@ S_ATTN, D_ATTN = 64, 16  # prefill_attn operands
 B_DEC, S_DEC = 8, 64  # decode_attn operands (B 8: multi-master on 4 ranks)
 B_SSM, S_SSM = 2, 128  # the reference test's recurrent sizes
 MESH8, MESH4 = (4, 2), (2, 2)
-STEP_ARCHS = ["lwm-7b", "glm4-9b", "zamba2-2.7b", "xlstm-350m"]
-TRAIN_ARCHS = ["lwm-7b", "zamba2-2.7b", "xlstm-350m"]
+#: ``arch:variant`` is a reduced arch with `VARIANTS`' overrides
+STEP_ARCHS = ["lwm-7b", "glm4-9b", "zamba2-2.7b", "xlstm-350m", "mixtral-8x7b",
+              "arctic-480b", "pixtral-12b", "whisper-tiny", "mixtral-8x7b:drop",
+              "mixtral-8x7b:e3"]
+TRAIN_ARCHS = ["lwm-7b", "zamba2-2.7b", "xlstm-350m", "mixtral-8x7b",
+               "pixtral-12b", "whisper-tiny", "mixtral-8x7b:e3"]
+#: the archs whose steps are also held to the reference's own mesh-aware
+#: steps on the (4, 2) `AxisType.Auto` mesh (they run there under jax 0.9)
+MESH_REF_ARCHS = ["mixtral-8x7b", "arctic-480b", "pixtral-12b", "whisper-tiny",
+                  "mixtral-8x7b:drop", "mixtral-8x7b:e3"]
+#: moe variants: ``drop`` lowers the capacity factor until assignments
+#: drop (`reduced` sets 4.0 so that smoke tests see none); ``e3`` has 3
+#: experts, which the model axis (2) does not divide: TP inside each expert
+VARIANTS = {"drop": dict(moe_capacity_factor=0.5), "e3": dict(n_experts=3)}
+#: `apply_moe` alone on the mesh: (variant, constrain kind)
+MOE_CASES = [("drop", "prefill"), ("drop", "train"), ("e3", "prefill"),
+             ("e3", "train")]
+B_MOE, S_MOE = 2, 32
 B_STEP, S_STEP = 2, 32  # prefill steps
 B_TRAIN, T_TRAIN, MICRO = 4, 24, 2  # train steps: 2 microbatches of 2
 
@@ -115,31 +131,84 @@ def ssm_cfg(kind, pkg="repro_torch"):
 
 
 def step_cfg(arch, pkg="repro_torch"):
+    """The reduced config of ``arch`` (``name:variant``): 2 layers for the
+    dense, moe and vlm families."""
     import importlib
 
     cfgs = importlib.import_module(f"{pkg}.configs")
-    cfg = cfgs.REGISTRY[arch]
-    return cfgs.reduced(cfg, n_layers=2) if cfg.family == "dense" else cfgs.reduced(cfg)
+    name, _, variant = arch.partition(":")
+    cfg = cfgs.REGISTRY[name]
+    over = dict(VARIANTS.get(variant, {}))
+    if cfg.family in ("dense", "moe", "vlm"):
+        over["n_layers"] = 2
+    return cfgs.reduced(cfg, **over)
 
 
 def step_layout(arch, n_data: int):
-    """(permutation of the prompt axis, positions) of a prefill step on
-    ``n_data`` data ranks: striped for the attention families, contiguous
-    for the recurrent ones (their layers run on the contiguous layout)."""
+    """(permutation of the prompt's token axis, positions of the whole
+    sequence) of a prefill step on
+    ``n_data`` data ranks: striped for the attention families (the
+    encoder-decoder's decoder included), contiguous for the recurrent ones
+    (their layers run on the contiguous layout) and for vlm (a striped
+    permutation cannot cross the image / text seam)."""
     from repro_torch.core import striped
 
-    if step_cfg(arch).family == "dense":
+    cfg = step_cfg(arch)
+    if cfg.family in ("dense", "moe", "audio"):
         perm = striped.stripe_indices(S_STEP, n_data)
-    else:
-        perm = np.arange(S_STEP)
-    return perm, perm.astype(np.int32)
+        return perm, perm.astype(np.int32)
+    n_img = cfg.n_frontend_tokens if cfg.frontend == "patch_stub" else 0
+    return np.arange(S_STEP - n_img), np.arange(S_STEP, dtype=np.int32)
+
+
+def step_inputs(arch) -> dict:
+    """Seeded numpy inputs of one step case: the prompt's tokens and its
+    vlm / audio inputs (``extra``: a vlm prompt is ``n_frontend_tokens``
+    image embeddings, then ``S_STEP - n_frontend_tokens`` text tokens), the
+    decode batch's prompt (``dprompt``, ``dextra``), its ragged lengths and
+    tokens."""
+    cfg = step_cfg(arch, "repro_torch")
+    rng = np.random.default_rng(11)
+    n_img = cfg.n_frontend_tokens if cfg.frontend == "patch_stub" else 0
+
+    def extra(b):
+        out = {}
+        if n_img:
+            out["patch_embeds"] = (rng.normal(size=(b, n_img, cfg.d_model))
+                                   * 0.05).astype(np.float32)
+        if cfg.frontend == "audio_stub":
+            out["frames"] = (rng.normal(size=(b, cfg.encoder_seq, cfg.d_model))
+                             * 0.05).astype(np.float32)
+        return out
+
+    prompt = rng.integers(0, cfg.vocab_size, (B_STEP, S_STEP - n_img)).astype(np.int32)
+    pre_extra = extra(B_STEP)
+    dprompt = rng.integers(0, cfg.vocab_size, (B_DEC, S_STEP - n_img)).astype(np.int32)
+    dec_extra = extra(B_DEC)
+    length = rng.integers(S_STEP - 12, S_STEP + 1, B_DEC).astype(np.int32)
+    dtokens = rng.integers(0, cfg.vocab_size, B_DEC).astype(np.int32)
+    return dict(prompt=prompt, extra=pre_extra, dprompt=dprompt,
+                dextra=dec_extra, length=length, dtokens=dtokens)
+
+
+def moe_inputs(seed: int = 5) -> dict:
+    """Per `VARIANTS` entry: x [B_MOE, S_MOE, d] (the layer input before
+    its S-major flatten) and the cotangent weights w [B_MOE * S_MOE, d] of
+    the train kind's ``sum(out * w) + aux``."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for v in VARIANTS:
+        d = step_cfg(f"mixtral-8x7b:{v}").d_model
+        out[v] = dict(x=rng.normal(size=(B_MOE, S_MOE, d)).astype(np.float32),
+                      w=rng.normal(size=(B_MOE * S_MOE, d)).astype(np.float32))
+    return out
 
 
 # ------------------------------------------------------- the JAX reference
 def jax_reference(in_path: str, out_path: str) -> None:
-    """The reference's `ESPAttnImpl.prefill_attn` / `decode_attn` and its
-    three `ssm_sp` functions on a (4, 2) ("data", "model") mesh of 8 CPU
-    devices (`AxisType.Auto`: the reference's own code runs unchanged under
+    """The reference's `ESPAttnImpl.prefill_attn` / `decode_attn`, its
+    three `ssm_sp` functions and its mesh-aware steps of `MESH_REF_ARCHS`
+    on a (4, 2) ("data", "model") mesh of 8 CPU devices (`AxisType.Auto`: the reference's own code runs unchanged under
     jax 0.9 on such a mesh); outputs go through `np.asarray` before any
     indexing.  Run in a subprocess with the 8-device XLA flag."""
     import pickle
@@ -170,6 +239,7 @@ def jax_reference(in_path: str, out_path: str) -> None:
                          impl.decode_attn(*a, window=window, softcap=softcap))
             out["decode"][name] = np.asarray(
                 fn(c["q"], c["kc"], c["vc"], c["kn"], c["vn"], c["cl"]))
+        out["steps"] = {arch: _jax_mesh_steps(mesh, arch) for arch in MESH_REF_ARCHS}
         fns = {"mamba": ssm_sp.mamba2_forward_sp, "mlstm": ssm_sp.mlstm_forward_sp,
                "slstm": ssm_sp.slstm_forward_sp}
         for kind in SSM_KINDS:
@@ -181,6 +251,62 @@ def jax_reference(in_path: str, out_path: str) -> None:
             out["ssm"][kind] = (np.asarray(y), [np.asarray(a) for a in st])
     with open(out_path, "wb") as f:
         pickle.dump(out, f)
+
+
+def ref_decode_cache(arch, params, inp) -> dict:
+    """The flat cache of a decode step case: the reference's ``mesh=None``
+    prefill of the decode prompt, with the case's ragged lengths."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.launch import steps as jsteps
+
+    cfg = step_cfg(arch, "repro")
+    _, prefill = jsteps.make_prefill_step(cfg, None)
+    batch = {k: jnp.asarray(v) for k, v in
+             dict(inp["dextra"], tokens=inp["dprompt"]).items()}
+    _, dc = jax.jit(prefill)(batch, jnp.arange(S_STEP), params)
+    flat = {"length": inp["length"]}
+    if dc.k is not None:
+        flat["k"], flat["v"] = dc.k, dc.v
+    if cfg.family == "hybrid":
+        flat["ssm_h"], flat["ssm_conv"] = dc.ssm.h, dc.ssm.conv
+    if cfg.family == "ssm":
+        m, st = dc.ssm
+        flat.update(xl_c=m.c, xl_n=m.n, xl_m=m.m, sl_c=st.c, sl_n=st.n, sl_h=st.h,
+                    sl_m=st.m)
+    if cfg.is_encoder_decoder:
+        flat["cross_k"], flat["cross_v"] = dc.cross_k, dc.cross_v
+    return {k: np.asarray(v) for k, v in flat.items()}
+
+
+def _jax_mesh_steps(mesh, arch):
+    """The reference's mesh-aware prefill (with its last-position logits)
+    and decode steps of one step case on ``mesh`` ((4, 2) layout), on the
+    parameters (``init(PRNGKey(0))``) and inputs the torch ranks get."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.launch import steps as jsteps
+
+    cfg = step_cfg(arch, "repro")
+    model, prefill = jsteps.make_prefill_step(cfg, mesh)
+    params = model.init(jax.random.PRNGKey(0))
+    inp = step_inputs(arch)
+    dcache = ref_decode_cache(arch, params, inp)
+    perm, pos = step_layout(arch, MESH8[0])
+    batch = {k: jnp.asarray(v) for k, v in
+             dict(inp["extra"], tokens=inp["prompt"][:, perm]).items()}
+    nt, cache = jax.jit(prefill)(batch, jnp.asarray(pos), params)
+    logits = jax.jit(lambda b, p, prm: model.prefill(prm, b, p, last_logit_only=True)[0])(
+        batch, jnp.asarray(pos), params)
+    _, decode = jsteps.make_decode_step(cfg, mesh)
+    dout = jax.jit(decode)(jnp.asarray(inp["dtokens"]),
+                           {k: jnp.asarray(v) for k, v in dcache.items()}, params)
+    return dict(token=np.asarray(nt), logits=np.asarray(logits),
+                cache={k: np.asarray(v) for k, v in cache._asdict().items()
+                       if v is not None and not isinstance(v, tuple)},
+                decode={k: np.asarray(v) for k, v in dout.items()})
 
 
 # ------------------------------------------------------------- rank bodies
@@ -292,12 +418,14 @@ def _steps(mesh_shape, payload, archs):
     for arch in archs:
         cfg = step_cfg(arch)
         c = payload["steps"][arch]
+        inp = c["inputs"]
         params = params_from_numpy(cfg, c["params"], device="cpu")
         pp = steps.place_params(cfg, mesh, params)
         perm, pos = step_layout(arch, mesh_shape[0])
         model, prefill = steps.make_prefill_step(cfg, mesh, device="cpu")
         ish = steps.input_shardings(cfg, ShapeSpec("t", "prefill", S_STEP, B_STEP), mesh)
-        batch = shlib.distribute({"tokens": _t(c["prompt"][:, perm])}, mesh, ish["batch"])
+        raw = dict(inp["extra"], tokens=inp["prompt"][:, perm])
+        batch = shlib.distribute({k: _t(v) for k, v in raw.items()}, mesh, ish["batch"])
         positions = shlib.distribute(_t(pos), mesh, ish["positions"])
         ops.reset_dispatch_counts()
         nt, cache = prefill(batch, positions, pp)
@@ -307,18 +435,63 @@ def _steps(mesh_shape, payload, archs):
         res = {"prefill_token": _full(nt), "prefill_logits": _full(logits),
                "prefill_cache": _tree_np(cache._asdict(), _full),
                "prefill_counts": counts}
-        _, decode = steps.make_decode_step(cfg, mesh, device="cpu")
+        dmodel, decode = steps.make_decode_step(cfg, mesh, device="cpu")
         ish = steps.input_shardings(cfg, ShapeSpec("t", "decode", S_STEP, B_DEC), mesh)
         flat = {k: _t(v) for k, v in c["dcache"].items()}
         flat = shlib.distribute(flat, mesh, {k: ish["cache"][k] for k in flat})
-        toks = shlib.distribute(_t(c["dtokens"]), mesh, ish["tokens"])
+        toks = shlib.distribute(_t(inp["dtokens"]), mesh, ish["tokens"])
         ops.reset_dispatch_counts()
         o = decode(toks, flat, pp)
         res["decode_counts"] = dict(ops.dispatch_counts)
         res["decode"] = {k: _full(v) for k, v in o.items()}
         res["decode_token_local"] = _local(o["next_token"].redistribute(
             mesh, shlib.placements(mesh, shlib.P(), 1)))
+        train_model = steps.build_model_for(cfg, mesh, "train", esp=False, device="cpu")
+        res["impls"] = {kind: type(m.attn_impl).__name__ for kind, m in
+                        (("prefill", model), ("decode", dmodel), ("train", train_model))}
         out[arch] = res
+    return out
+
+
+def _moe(mesh_shape, payload):
+    """`apply_moe` alone on the mesh for `MOE_CASES`: the layer input
+    [B, S, d] placed as the layer's activation (``constrain(x, "act")``),
+    flattened S-major, routed with the kind's constraints; its output, aux
+    loss and dropped fraction, and the gradients of ``sum(out * w) + aux``
+    in the train kind."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.launch import sharding as shlib
+    from repro_torch.launch import steps
+    from repro_torch.models import moe
+
+    mesh = _mesh(mesh_shape)
+    out = {}
+    for variant, kind in MOE_CASES:
+        cfg = step_cfg(f"mixtral-8x7b:{variant}")
+        c = payload["moe"][variant]
+        p = params_from_numpy(cfg, c["params"], device="cpu")["layers"]["moe"]
+        p = {k: v[0] for k, v in p.items()}  # layer 0
+        specs = shlib.param_specs(cfg, mesh, {"moe": p}, train=kind == "train")["moe"]
+        train = kind == "train"
+        pd = {k: shlib.distribute(v, mesh, specs[k]).requires_grad_(train)
+              for k, v in p.items()}
+        constrain = shlib.make_constrain(cfg, mesh, kind)
+        x0 = shlib.distribute(_t(c["x"]), mesh, shlib.P()).requires_grad_(train)
+        with torch.enable_grad(), implicit_replication():
+            flat = moe.tokens_s_major(constrain(x0, "act"))
+            mo = moe.apply_moe(pd, flat, top_k=cfg.moe_top_k,
+                               capacity_factor=cfg.moe_capacity_factor,
+                               ffn_kind=cfg.ffn_kind, constrain=constrain)
+            res = {"out": _full(mo.out), "aux": float(steps.full_value(mo.aux_loss)),
+                   "dropped": float(mo.dropped_frac)}
+            if train:
+                loss = (mo.out * _t(c["w"])).sum() + mo.aux_loss
+                grads = torch.autograd.grad(loss, [x0] + list(pd.values()))
+                res["grads"] = {k: _full(g) for k, g in zip(["x"] + list(pd), grads)}
+        out[(variant, kind)] = res
     return out
 
 
@@ -328,6 +501,14 @@ def case_steps8(rank, world, payload):
 
 def case_steps4(rank, world, payload):
     return _steps(MESH4, payload, STEP_ARCHS)
+
+
+def case_moe8(rank, world, payload):
+    return _moe(MESH8, payload)
+
+
+def case_moe4(rank, world, payload):
+    return _moe(MESH4, payload)
 
 
 def case_train4(rank, world, payload):
@@ -372,5 +553,7 @@ CASES = {
     "ssm": case_ssm,
     "steps8": case_steps8,
     "steps4": case_steps4,
+    "moe8": case_moe8,
+    "moe4": case_moe4,
     "train4": case_train4,
 }

@@ -46,6 +46,14 @@ Spawns one process per rank (rank r on card r) that opens the world with
      (xlstm-350m width) at B 2 x S 8192 on (world, 1) against their
      single-card forwards, timed the same way.
 
+     Then three checks of the mesh steps' numerics: the ESP ring's merge in
+     bf16 on rings of the world and of 2 ranks against one card's K4 over
+     the whole sequence, with the ring steps' partials in f32 (the port)
+     and rounded to bf16 (as before the LSE entry wrote f32); the (2,
+     world / 2) logit check in f32, held to 1e-4 x max|logit| with every
+     token equal; and mixtral-8x7b (2 layers, f32) on both meshes, expert-
+     parallel over real collectives, tokens equal to one card's.
+
 ``--only 4`` runs phase 4 alone.  Rank 0 prints every phase; the last line
 is a JSON summary.  Exits
 non-zero if a phase fails, a rank hangs past the time limit, or (without
@@ -248,9 +256,8 @@ def _phase_model(rank, world, dev, cpu, res, log):
                                          steps.cache_from_flat(cfg, flat))[0]
     want_dec = dec1(dtoks, flat, params)["next_token"]
     res["decode_one_card_ms"] = _timed(lambda: dec1(dtoks, flat, params), world_group, dev)
-    meshes = [(world, 1)] + ([(2, world // 2)] if world > 2 and world % 2 == 0 else [])
     out = {}
-    for shp in meshes:
+    for shp in _model_meshes(world):
         tag = f"{shp[0]}x{shp[1]}"
         mesh = make_test_mesh(*shp, device=dev.type)
         perm = striped.stripe_indices(s, shp[0])
@@ -337,7 +344,245 @@ def _phase_model(rank, world, dev, cpu, res, log):
                    f"slowest rank {sp_ms:.3f} ms vs one card {one_ms:.3f} ms")
         del p, lp, x, y, y1, yg
     res["recurrent_sp"] = rec
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    _ring_precision(world, dev, cpu, res, log)
+    _f32_logits(world, dev, cpu, res, log)
+    _moe_mesh(world, dev, cpu, res, log)
     del cs
+
+
+def _model_meshes(world):
+    return [(world, 1)] + ([(2, world // 2)] if world > 2 and world % 2 == 0 else [])
+
+
+def _ring_precision(world, dev, cpu, res, log):
+    """The ESP ring's merge precision: `ESPAttnImpl.prefill_attn` in bf16
+    at lwm-7b width (B 1 x S 16384, striped) on rings of ``world`` ranks
+    (world, 1) and of 2 ranks (2, world / 2), against one card's K4 over
+    the whole sequence — its bf16 serving output and its f32 LSE-entry
+    output — with the ring steps' partials as the port merges them (f32)
+    and, as before, rounded to bf16 (the LSE entry's o rounded by this
+    probe): max and mean abs error of each."""
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import striped
+    from repro_torch.core.esp import ESPAttnImpl
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_test_mesh
+
+    cfg = get_config("lwm-7b")
+    s = 16384
+    if cpu:
+        cfg, s = reduced(cfg), 64
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = torch.float32 if cpu else torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(8)
+    q, k, v = (torch.randn((1, s, hh, d), generator=g, device=dev).to(dt)
+               for hh in (h, kvh, kvh))
+    lse_entry = ops.striped_flash_attention_lse
+
+    def rounded(*a, **kw):  # the ring's partial before its o was f32
+        o, lse = lse_entry(*a, **kw)
+        return o.to(q.dtype).float(), lse
+
+    out = {}
+    for shp in _model_meshes(world):
+        mesh = make_test_mesh(*shp, device=dev.type)
+        perm = striped.stripe_indices(s, shp[0])
+        pos = torch.as_tensor(perm, dtype=torch.int32, device=dev)
+        qp, kp, vp = (x[:, perm] for x in (q, k, v))
+        with torch.no_grad():
+            one_bf16 = ops.attention(qp, kp, vp, pos, pos, causal=True).float()
+            o, lse = lse_entry(qp, kp, vp, pos, pos, causal=True)
+            one_f32 = torch.where(torch.isinf(lse.transpose(1, 2))[..., None],
+                                  torch.zeros((), device=dev), o)
+        impl = ESPAttnImpl(mesh, cfg)
+        row = {}
+        for arm in ("f32 partials", "bf16 partials"):
+            ops.striped_flash_attention_lse = rounded if arm == "bf16 partials" else lse_entry
+            try:
+                with torch.no_grad(), steps.mesh_context(mesh):
+                    ring = steps.full_value(impl.prefill_attn(
+                        qp, kp, vp, pos, pos, causal=True, window=None,
+                        softcap=None)).float()
+            finally:
+                ops.striped_flash_attention_lse = lse_entry
+            row[arm] = {ref: {"max": (ring - want).abs().max().item(),
+                              "mean": (ring - want).abs().mean().item()}
+                        for ref, want in (("vs K4 bf16", one_bf16),
+                                          ("vs K4 f32", one_f32))}
+        tag = f"{shp[0]}x{shp[1]}"
+        out[tag] = row
+        log.append(f"  ring merge {tag} (ring of {shp[0]}, S {s}, bf16): "
+                   + "; ".join(f"{arm}: " + ", ".join(
+                       f"{ref} max {e['max']:.3e} mean {e['mean']:.3e}"
+                       for ref, e in errs.items()) for arm, errs in row.items()))
+    res["ring_precision"] = out
+
+
+def _f32_logits(world, dev, cpu, res, log):
+    """The (2, world / 2) logit check of phase 4 in f32: lwm-7b width, 4
+    layers, prefill B 1 x S 16384 and decode B 8 at 16384 cached tokens,
+    against one card's ``mesh=None`` steps; logits within 1e-4 x
+    max|logit|, every token equal (in f32 the tensor-parallel sums move the
+    logits by rounding only)."""
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.convert import init_params
+    from repro_torch.core import striped
+    from repro_torch.launch import sharding as shlib
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_test_mesh
+
+    shp = _model_meshes(world)[-1]
+    cfg = dataclasses.replace(get_config("lwm-7b"), n_layers=4, dtype="float32")
+    s, b_dec = 16384, 8
+    if cpu:
+        cfg, s = reduced(cfg, n_layers=2), 64
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(9), dev)
+    rng = np.random.default_rng(9)
+    perm = striped.stripe_indices(s, shp[0])
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, s))[:, perm],
+                           dtype=torch.int32, device=dev)
+    pos = torch.as_tensor(perm, dtype=torch.int32, device=dev)
+    mesh = make_test_mesh(*shp, device=dev.type)
+    checks = {}
+    with torch.no_grad():
+        pmodel1 = steps.build_model_for(cfg, None, "prefill", device=dev)
+        want = pmodel1.prefill(params, {"tokens": toks}, pos, last_logit_only=True)[0][:, -1]
+        pmodel, _ = steps.make_prefill_step(cfg, mesh, device=dev)
+        pp = steps.place_params(cfg, mesh, params)
+        ish = steps.input_shardings(cfg, ShapeSpec("probe", "prefill", s, 1), mesh)
+        batch = shlib.distribute({"tokens": toks}, mesh, ish["batch"])
+        positions = shlib.distribute(pos, mesh, ish["positions"])
+        with steps.mesh_context(mesh):
+            got = pmodel.prefill(pp, batch, positions, last_logit_only=True)[0][:, -1]
+        checks["prefill"] = (got, want)
+        shape = (cfg.n_layers, b_dec, s + 2 * shp[0] * shp[1], cfg.n_kv_heads, cfg.head_dim)
+        gk = torch.Generator(device=dev).manual_seed(10)
+        flat = {"k": torch.randn(shape, generator=gk, device=dev) * 0.5,
+                "v": torch.randn(shape, generator=gk, device=dev) * 0.5,
+                "length": torch.full((b_dec,), s, dtype=torch.int32, device=dev)}
+        dtoks = torch.as_tensor(rng.integers(0, cfg.vocab_size, b_dec), dtype=torch.int32,
+                                device=dev)
+        dmodel1 = steps.build_model_for(cfg, None, "decode", device=dev)
+        want = dmodel1.decode(params, dtoks, steps.cache_from_flat(cfg, flat))[0]
+        dmodel, _ = steps.make_decode_step(cfg, mesh, device=dev)
+        dsh = steps.input_shardings(cfg, ShapeSpec("probe", "decode", s, b_dec), mesh)
+        dflat = shlib.distribute(flat, mesh, dsh["cache"])
+        with steps.mesh_context(mesh):
+            got = dmodel.decode(pp, shlib.distribute(dtoks, mesh, dsh["tokens"]),
+                                steps.cache_from_flat(cfg, dflat))[0]
+        checks["decode"] = (got, want)
+    out = {}
+    for kind, (got, want) in checks.items():
+        got = steps.full_value(got).float()
+        diff = (got - want).abs().max().item()
+        tol = 1e-4 * want.abs().max().item()
+        same = bool(torch.equal(torch.argmax(got, -1), torch.argmax(want, -1)))
+        out[kind] = {"logit_diff": diff, "tol": tol, "tokens_equal": same}
+        log.append(f"  f32 {shp[0]}x{shp[1]} {kind}: logits max abs diff {diff:.3e} "
+                   f"(tol {tol:.3e}, max|logit| {want.abs().max().item():.3e}); tokens "
+                   f"equal {same}")
+        assert diff <= tol and same, (kind, diff, tol, same)
+    res["f32_logits"] = out
+    del params, pp, flat, dflat
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _moe_mesh(world, dev, cpu, res, log):
+    """mixtral-8x7b at full width, 2 layers, f32, on (world, 1) and (2,
+    world / 2): experts over "model" (expert-parallel wherever "model"
+    divides the 8 experts) on real collectives.  The prefill step (B 1 x S
+    8192, striped, the 4096-token window) and the decode step (B 8 over
+    4096 cached tokens each) give tokens equal to one card's ``mesh=None`` steps,
+    logits within 1e-4 x max|logit|, and layer 0's `apply_moe` drops the
+    same fraction of assignments on the mesh (chip_smoke's check)."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.convert import init_params
+    from repro_torch.core import striped
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as shlib
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_test_mesh
+
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=2, dtype="float32")
+    s, b_dec = 8192, 8
+    if cpu:
+        cfg, s = reduced(cfg, n_layers=2, sliding_window=16), 64
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(11), dev)
+    rng = np.random.default_rng(11)
+    prompt = rng.integers(0, cfg.vocab_size, (1, s))
+    s_dec = s // 2  # the decode batch's cached prompts: the window's length
+    dprompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b_dec, s_dec)),
+                              dtype=torch.int32, device=dev)
+    dtoks = torch.as_tensor(rng.integers(0, cfg.vocab_size, b_dec), dtype=torch.int32,
+                            device=dev)
+    _, pre1 = steps.make_prefill_step(cfg, None, device=dev)
+    _, dc = pre1({"tokens": dprompt}, torch.arange(s_dec, dtype=torch.int32, device=dev),
+                 params)
+    flat = {"k": dc.k, "v": dc.v,
+            "length": torch.full((b_dec,), s_dec, dtype=torch.int32, device=dev)}
+    pad = torch.zeros(dc.k.shape[:2] + (2 * world,) + dc.k.shape[3:], device=dev)
+    flat["k"], flat["v"] = (torch.cat([x, pad], dim=2) for x in (flat["k"], flat["v"]))
+    del dc
+    dmodel1 = steps.build_model_for(cfg, None, "decode", device=dev)
+    with torch.no_grad():
+        want_dec = dmodel1.decode(params, dtoks, steps.cache_from_flat(cfg, flat))[0]
+    out = {}
+    for shp in _model_meshes(world):
+        tag = f"{shp[0]}x{shp[1]}"
+        mesh = make_test_mesh(*shp, device=dev.type)
+        perm = striped.stripe_indices(s, shp[0])
+        toks = torch.as_tensor(prompt[:, perm], dtype=torch.int32, device=dev)
+        pos = torch.as_tensor(perm, dtype=torch.int32, device=dev)
+        pmodel1 = steps.build_model_for(cfg, None, "prefill", device=dev)
+        with torch.no_grad():
+            want = pmodel1.prefill(params, {"tokens": toks}, pos, last_logit_only=True)[0][:, -1]
+        pmodel, pre = steps.make_prefill_step(cfg, mesh, device=dev)
+        pp = steps.place_params(cfg, mesh, params)
+        ish = steps.input_shardings(cfg, ShapeSpec("probe", "prefill", s, 1), mesh)
+        batch = shlib.distribute({"tokens": toks}, mesh, ish["batch"])
+        positions = shlib.distribute(pos, mesh, ish["positions"])
+        ops.reset_dispatch_counts()
+        with torch.no_grad(), steps.mesh_context(mesh):
+            got = pmodel.prefill(pp, batch, positions, last_logit_only=True)[0][:, -1]
+        counts = dict(ops.dispatch_counts)
+        dmodel, _ = steps.make_decode_step(cfg, mesh, device=dev)
+        dsh = steps.input_shardings(cfg, ShapeSpec("probe", "decode", s_dec, b_dec), mesh)
+        dflat = shlib.distribute(flat, mesh, dsh["cache"])
+        with torch.no_grad(), steps.mesh_context(mesh):
+            dgot = dmodel.decode(pp, shlib.distribute(dtoks, mesh, dsh["tokens"]),
+                                 steps.cache_from_flat(cfg, dflat))[0]
+        row = {"ep": cfg.n_experts % shp[1] == 0, "prefill_counts": counts}
+        for kind, g_, w_ in (("prefill", got, want), ("decode", dgot, want_dec)):
+            g_ = steps.full_value(g_).float()
+            diff = (g_ - w_).abs().max().item()
+            tol = 1e-4 * w_.abs().max().item()
+            same = bool(torch.equal(torch.argmax(g_, -1), torch.argmax(w_, -1)))
+            row[kind] = {"logit_diff": diff, "tol": tol, "tokens_equal": same}
+            log.append(f"  mixtral (2 layers, f32) {tag} {kind}: logits max abs diff "
+                       f"{diff:.3e} (tol {tol:.3e}); tokens equal {same}")
+            assert diff <= tol and same, (tag, kind, diff, tol, same)
+        moe_log = []
+        cs._mesh_moe_dropped(cfg, params, pp, mesh, toks, moe_log)
+        log.extend(moe_log)
+        out[tag] = row
+        del pp, dflat
+    res["moe_mesh"] = out
+    del params, flat
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def _rank(rank, world, init, cpu, q_out, only=None):
@@ -576,7 +821,8 @@ def main() -> int:
                 "ring_leg_ms", "ring_leg_bytes", "ring_counts", "ring_bytes",
                 "spmd_ms", "sharded_ms", "k2_one_card_ms", "engine_wall_s",
                 "engine_counts", "engine_bytes", "oracle", "decode_one_card_ms",
-                "model_steps", "recurrent_sp"):
+                "model_steps", "recurrent_sp", "ring_precision", "f32_logits",
+                "moe_mesh"):
         print(f"[mesh_probe] {key}: {r0.get(key)}")
     print(f"[mesh_probe] took {time.perf_counter() - t0:.1f} s")
     summary = {k: v for k, v in r0.items() if k not in ("log", "tokens")}
