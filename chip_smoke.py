@@ -126,7 +126,20 @@ Phases (each one fails the run with a non-zero exit; none is caught):
      1500 frames, a 448-token prompt, 16 decode steps, 2 train steps):
      tokens equal the ``mesh=None`` steps', caches, parameters and losses
      within bf16 tolerances, K4 (forward and backward) and K5 launched,
-     K1-K3 not.
+     K1-K3 not;
+  18. the op census (`launch.census`, the dry run's count of a step's
+     work) around phase 16 / 17's lwm-7b steps on the card (full width, 4
+     of 32 layers, bf16, ``mesh=None``): a prefill of B 1 x S 8192, 16
+     decode steps and a train step of B 2 x S 4096 with remat; K4, its
+     backward and K5 launch, the census counts one kernel call per launch,
+     and the same steps built on meta tensors give identical FLOPs, bytes
+     and kernel work.  Each step's roofline terms (census FLOPs over 989e12
+     FLOP/s, bytes over 3.35e12 B/s) beside its measured time (CUDA
+     events, median of 5), the share max(compute, memory) / measured
+     (above 1.05 fails) and `model_flops_estimate` / (measured x 989e12);
+     then examples/torch_quickstart.py and
+     examples/torch_elastic_scaling_demo.py run on the card as
+     subprocesses (exit 0, kernels launched, tokens equal to the oracle).
 
 Phases 2-3 also hold `ops.attention_partial` (K4 with its row LSE as the
 ESP ring step's unnormalized partial, its o in f32) against the plain
@@ -171,6 +184,7 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import itertools
@@ -3068,6 +3082,233 @@ def _mesh_train(arch, cfg, b, s, mesh, dev, timed, launches, wall, log):
     torch.cuda.empty_cache()
 
 
+# phase 18: the op census (`launch.census`) around phase 16 / 17's lwm-7b
+# steps (full width, 4 of 32 layers, bf16, mesh=None)
+CENSUS_LAYERS = 4
+CENSUS_S = 8192  # the prefill's prompt (B 1)
+CENSUS_DECODE = 16  # decode steps after it
+CENSUS_TRAIN = (2, 4096)  # the train step's B x S (remat, loss_chunk 1024)
+CENSUS_REPS = 5  # timed calls per step (the median is kept)
+SHARE_MAX = 1.05  # the roofline's time over the measured one may not exceed
+
+
+def _census_run(cfg, dev, params, rng, counted=None, times=None):
+    """Phase 18's steps on ``dev`` (the card, or meta): a prefill of B 1 x
+    S ``CENSUS_S``, ``CENSUS_DECODE`` greedy decode steps over its padded
+    cache (each step's new KV written at the row's length, outside the
+    census) and one train step, each kind under its own `Census`.  Returns
+    {kind: census result}.  ``counted()`` is called after the census runs;
+    with ``times`` (a dict), the same steps then run again without the
+    census, ``CENSUS_REPS`` timed calls each (CUDA events; every decode step
+    of a second loop), into ``times[kind]`` in ms."""
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.launch.census import Census
+
+    meta = dev.type == "meta"
+
+    def ints(shape):
+        if meta:
+            return torch.empty(shape, dtype=torch.int32, device=dev)
+        return torch.as_tensor(rng.integers(0, cfg.vocab_size, shape),
+                               dtype=torch.int32, device=dev)
+
+    _, pre = steps.make_prefill_step(cfg, None, device=dev)
+    _, dec = steps.make_decode_step(cfg, None, device=dev)
+    _, trn = steps.make_train_step(cfg, None, loss_chunk=1024, remat=True,
+                                   device=dev)
+    cen = {k: Census() for k in ("prefill", "decode", "train")}
+    prompt = {"tokens": ints((1, CENSUS_S))}
+    pos = torch.arange(CENSUS_S, dtype=torch.int32, device=dev)
+    with cen["prefill"]:
+        nt, c = pre(prompt, pos, params)
+
+    def dcache():
+        pad = c.k.new_zeros((c.k.shape[0], 1, CENSUS_S + CENSUS_DECODE)
+                            + tuple(c.k.shape[3:]))
+        k, v = pad.clone(), pad.clone()
+        k[:, :, :CENSUS_S], v[:, :, :CENSUS_S] = c.k, c.v
+        return {"k": k, "v": v, "length": torch.full(
+            (1,), CENSUS_S, dtype=torch.int32, device=dev)}
+
+    def decode_loop(cache, census=None, ts=None):
+        tok = nt.to(torch.int32)
+        for _ in range(CENSUS_DECODE):
+            ev = _events() if ts is not None else None
+            with census if census is not None else contextlib.nullcontext():
+                o = dec(tok, cache, params)
+            if ev is not None:
+                ts.append(_elapsed(ev))
+            at = cache["length"].long()  # B 1: one row, written on the device
+            cache["k"].index_copy_(2, at, o["new_k"])
+            cache["v"].index_copy_(2, at, o["new_v"])
+            cache["length"] = o["length"].to(torch.int32)
+            tok = o["next_token"].to(torch.int32)
+
+    decode_loop(dcache(), cen["decode"])
+    b, s = CENSUS_TRAIN
+    toks = ints((b, s + 1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    opt = steps.init_opt_state(params)
+    with cen["train"]:
+        trn(params, opt, batch)
+    out = {k: c_.result() for k, c_ in cen.items()}
+    if counted is not None:
+        counted()
+    if times is not None:
+        times["prefill"] = _timed_calls(lambda: pre(prompt, pos, params))
+        times["decode"] = []
+        decode_loop(dcache(), ts=times["decode"])
+        times["train"] = _timed_calls(lambda: trn(params, opt, batch))
+    return out
+
+
+def _events():
+    import torch
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    return ev
+
+
+def _elapsed(ev) -> float:
+    ev[1].record()
+    ev[1].synchronize()
+    return ev[0].elapsed_time(ev[1])
+
+
+def _timed_calls(fn, reps=CENSUS_REPS):
+    """ms of ``reps`` calls (CUDA events; the outputs are dropped)."""
+    ts = []
+    for _ in range(reps):
+        ev = _events()
+        fn()
+        ts.append(_elapsed(ev))
+    return ts
+
+
+def _run_example(name, log):
+    """Run examples/``name`` on the card as a subprocess; returns its kernel
+    launches (the "kernel launches:" line it prints)."""
+    import os
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    p = subprocess.run([sys.executable, str(ROOT / "examples" / name)],
+                       cwd=str(ROOT), env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert p.returncode == 0, (name, p.stdout[-3000:], p.stderr[-3000:])
+    lines = p.stdout.splitlines()
+    launches = json.loads(next(l for l in lines if l.startswith(
+        "kernel launches:")).split(":", 1)[1])
+    parity = next(l for l in lines if l.startswith("token parity:"))
+    assert lines[-1].startswith("OK"), (name, lines[-3:])
+    log.append(f"  examples/{name}: rc 0 in {time.perf_counter() - t0:.1f} s; "
+               f"{parity}; kernel launches {launches}")
+    return launches
+
+
+def phase_census(card, rec):
+    """Phase 18: the op census (`repro_torch.launch.census`, the dry run's
+    count of a step's work) around real steps on the card — lwm-7b at full
+    width, 4 of 32 layers, bf16, ``mesh=None``: a prefill of B 1 x S 8192,
+    16 decode steps and one train step of B 2 x S 4096 with remat.  K4's
+    forward and backward and K5 must launch, and the census must count one
+    kernel call per launch.  The same steps built on meta tensors must give
+    identical FLOPs, bytes and kernel work.  Then each step's roofline
+    (census FLOPs over 989e12 FLOP/s, census bytes over 3.35e12 B/s) against
+    its measured steady-state time (CUDA events, median of 5 calls; every
+    step of a second decode loop), the share max(compute, memory) /
+    measured (above 1.05 fails the run) and `model_flops_estimate` /
+    (measured x 989e12).  Then examples/torch_quickstart.py and
+    examples/torch_elastic_scaling_demo.py run on the card as subprocesses:
+    both exit 0, launch their kernels and check tokens against the serial
+    oracle themselves."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+
+    t_ph = time.perf_counter()
+    cfg = dataclasses.replace(get_config("lwm-7b"), n_layers=CENSUS_LAYERS)
+    dev = torch.device("cuda")
+    params = convert.init_params(cfg, torch.Generator(device=dev).manual_seed(18))
+    times: dict = {}
+    counts: dict = {}
+    _reset_counts()
+    got = _census_run(cfg, dev, params, np.random.default_rng(18),
+                      lambda: counts.update(_kernel_counts()), times)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = _census_run(cfg, torch.device("meta"), dryrun.meta_params(cfg), None)
+    log = [f"[census {card}] lwm-7b full width, {CENSUS_LAYERS} of 32 layers, "
+           "bf16, mesh=None; rank 0 of one card:"]
+    for kind in got:
+        if got[kind] != want[kind]:
+            raise AssertionError(f"phase 18: the census of the {kind} step on "
+                                 f"the card {got[kind]} differs from the same "
+                                 f"step's on meta {want[kind]}")
+    k4 = counts.get("striped_flash_attention", 0)
+    k4b = counts.get("striped_flash_attention_bwd", 0)
+    k5 = counts.get("flash_decode_partial", 0)
+    assert k4 > 0 and k4b > 0 and k5 > 0, counts
+    _expect_launches(counts, [], ["packed_flash_prefill",
+                                  "packed_flash_prefill_ring_chunk",
+                                  "paged_flash_decode_partial"])
+    seen = {}
+    for r in got.values():
+        for name, k in r["kernels"].items():
+            seen[name] = seen.get(name, 0) + k["calls"]
+    assert seen == {"K4": k4, "K4 bwd": k4b, "K5": k5}, (seen, counts)
+    b_t, s_t = CENSUS_TRAIN
+    shapes = {"prefill": ShapeSpec("prefill", "prefill", CENSUS_S, 1),
+              "decode": ShapeSpec("decode", "decode",
+                                  CENSUS_S + CENSUS_DECODE // 2, 1),
+              "train": ShapeSpec("train", "train", s_t, b_t)}
+    what = {"prefill": f"prefill B 1 x S {CENSUS_S}",
+            "decode": f"decode step B 1 at {CENSUS_S}-{CENSUS_S + CENSUS_DECODE} "
+                      "keys",
+            "train": f"train step B {b_t} x S {s_t}, remat"}
+    for kind, r in got.items():
+        n_calls = CENSUS_DECODE if kind == "decode" else 1
+        flops, nbytes = r["flops"] / n_calls, r["bytes"] / n_calls
+        ms = float(np.median(times[kind][1:] if kind == "decode" else times[kind]))
+        comp, mem = flops / PEAK_BF16, nbytes / HBM_BPS
+        share = max(comp, mem) / (ms * 1e-3)
+        mfu = dryrun.model_flops_estimate(cfg, shapes[kind]) / (ms * 1e-3 * PEAK_BF16)
+        kern = {k: f"{v['calls'] // n_calls} calls, {v['flops'] / n_calls:.4e} "
+                   f"FLOPs, {v['bytes'] / n_calls:.4e} B"
+                for k, v in r["kernels"].items()}
+        log.append(
+            f"  {what[kind]}: census {flops:.6e} FLOPs, {nbytes:.6e} bytes "
+            f"(equal on meta; kernels {kern}); roofline compute "
+            f"{comp * 1e3:.3f} ms, memory {mem * 1e3:.3f} ms; measured "
+            f"{ms:.3f} ms (CUDA events, median of "
+            f"{len(times[kind]) - (kind == 'decode')}); share "
+            f"max(compute, memory) / measured {share:.3f}; "
+            f"model_flops_estimate / (measured x 989e12) {mfu:.4g}")
+        assert share <= SHARE_MAX, (kind, share)
+    for name in ("torch_quickstart.py", "torch_elastic_scaling_demo.py"):
+        ex = _run_example(name, log)
+        assert sum(ex.values()) > 0, (name, ex)
+        for key, kname in (("K1", "packed_flash_prefill"),
+                           ("K3", "packed_flash_prefill_ring_chunk"),
+                           ("K2", "paged_flash_decode_partial")):
+            rec[key]["launches_by_path"][f"examples/{name} (phase 18, a "
+                                         "subprocess)"] = ex.get(kname, 0)
+    print("\n".join(log))
+    rec["K4"]["launches_by_path"]["census (phase 18)"] = k4
+    rec["K4 bwd"]["launches_by_path"]["census (phase 18)"] = k4b
+    rec["K5"]["launches_by_path"]["census (phase 18)"] = k5
+    for key, n in (("K4", k4), ("K4 bwd", k4b), ("K5", k5)):
+        rec[key]["launches"] = rec[key].get("launches", 0) + n
+    print(f"[phase 18] census and examples took {time.perf_counter() - t_ph:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -3203,7 +3444,8 @@ def main() -> int:
                      (14, lambda: phase_cli(card, rec)),
                      (15, lambda: phase_mesh(card, rec, lens)),
                      (16, lambda: phase_train(card, rec)),
-                     (17, lambda: phase_mesh_model(card, rec))):
+                     (17, lambda: phase_mesh_model(card, rec)),
+                     (18, lambda: phase_census(card, rec))):
         t_ph = time.perf_counter()
         phase()
         print(f"[phase {n}] took {time.perf_counter() - t_ph:.1f} s")

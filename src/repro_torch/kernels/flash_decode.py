@@ -13,6 +13,11 @@ The wrapper:
     `launch_counts` — or raises on what the kernel does not take.  Nothing
     falls back.
 
+On a meta tensor (the dry run) it returns outputs of the right shape and
+dtype and computes nothing.  On every device a call reports its work by
+shape to the op census (`launch.census`), and what runs to do it runs
+uncounted.
+
 Contract: ``q`` [B, 1, H, D]; ``k``/``v`` [B, S, KVH, D], the KV shard whose
 first key sits at global position ``k_pos_offset``; ``lengths`` [B] each
 request's global valid cache length, which may exceed ``k_pos_offset + S``
@@ -30,6 +35,7 @@ import torch
 
 from repro_torch.kernels import decode_split, refuse_grad
 from repro_torch.kernels.ref import flash_decode_partial_ref
+from repro_torch.launch import census
 from repro_torch.models.attention import Partial, empty_partial
 
 #: kernel launches on CUDA tensors (comparisons with the plain version and
@@ -78,14 +84,25 @@ def flash_decode_partial(q, k, v, lengths, *, k_pos_offset: int = 0,
     Partial of every request's query over it.  Refuses inputs that require
     grad (`kernels.refuse_grad`)."""
     refuse_grad("flash_decode_partial", q, k, v)
-    if q.device.type == "cpu":
-        return flash_decode_partial_plain(q, k, v, lengths,
-                                          k_pos_offset=k_pos_offset,
-                                          window=window, softcap=softcap)
     b, sq, h, d = q.shape
-    if b == 0 or k.shape[1] == 0:  # an empty shard
-        return empty_partial(b, sq, h, d, device=q.device)
-    out = _launch(q, k, v, lengths, k_pos_offset=k_pos_offset, window=window,
-                  softcap=softcap)
+    if census.active():
+        # reads q, k, v and the int32 lengths; writes the f32 (o, m, l)
+        census.report_kernel(
+            "K5", census.attention_flops(b, sq, k.shape[1], h, d,
+                                         causal=False, window=window),
+            census.nbytes(q, k, v) + 4 * b + 4 * b * sq * h * (d + 2))
+    with census.uncounted():
+        if q.device.type == "cpu":
+            return flash_decode_partial_plain(q, k, v, lengths,
+                                              k_pos_offset=k_pos_offset,
+                                              window=window, softcap=softcap)
+        if q.device.type == "meta":
+            return Partial(q.new_empty((b, sq, h, d), dtype=torch.float32),
+                           q.new_empty((b, sq, h), dtype=torch.float32),
+                           q.new_empty((b, sq, h), dtype=torch.float32))
+        if b == 0 or k.shape[1] == 0:  # an empty shard
+            return empty_partial(b, sq, h, d, device=q.device)
+        out = _launch(q, k, v, lengths, k_pos_offset=k_pos_offset,
+                      window=window, softcap=softcap)
     launch_counts["flash_decode_partial"] += 1
     return out

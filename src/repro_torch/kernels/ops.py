@@ -17,7 +17,8 @@ function).  The counted collectives (`ring_ppermute`, `ppermute`,
 executor's and the mesh-aware model path's communication on
 `torch.distributed` — gloo for CPU tensors, NCCL for CUDA tensors: each adds
 one to `dispatch_counts` and the per-rank payload bytes to `comm_bytes`
-under its name, as the reference's `lax` collectives do.
+under its name, as the reference's `lax` collectives do, and reports the
+same payload with its group's size to the op census (`launch.census`).
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ from repro_torch.kernels.striped_attention import (
     striped_flash_attention,
     striped_flash_attention_lse,
 )
+from repro_torch.launch import census
 from repro_torch.models.attention import Partial, empty_partial
 
 
@@ -190,6 +192,15 @@ def _finish(outs, works, operands, async_op: bool, keep=()):
     return p if async_op else p.wait()
 
 
+def _count(key: str, kind: str, operands, group) -> None:
+    """Add a collective's per-rank payload to `comm_bytes[key]` and report
+    it to the census as one of ``kind`` (a `census.COLLECTIVES` class)."""
+    b = _payload_bytes(operands)
+    comm_bytes[key] += b
+    if census.active():
+        census.report_collective(kind, b, dist.get_world_size(group))
+
+
 def count_transfer(key: str, operands) -> None:
     """Account an explicit transfer under `comm_bytes[key]`."""
     comm_bytes[key] += _payload_bytes(operands)
@@ -206,7 +217,7 @@ def _send_recv(key, operands, group, pairs, async_op):
     ops_ = []
     for src, dst in pairs:
         if src == r:
-            comm_bytes[key] += _payload_bytes(xs)
+            _count(key, "collective-permute", xs, group)
             ops_ += [dist.P2POp(dist.isend, x, ranks[dst], group, tag=i)
                      for i, x in enumerate(xs)]
         if dst == r:
@@ -241,7 +252,7 @@ def ppermute(operands, group, pairs):
 
 def _all_reduce(key, op, operands, group, async_op):
     dispatch_counts[key] += 1
-    comm_bytes[key] += _payload_bytes(operands)
+    _count(key, "all-reduce", operands, group)
     outs = [x.clone(memory_format=torch.contiguous_format)
             for x in _leaves(operands)]
     works = [dist.all_reduce(o, op=op, group=group, async_op=True)
@@ -271,7 +282,7 @@ def psum_scatter(operands, group, *, scatter_dimension: int = 0,
     pre-scatter tensor), like `psum`."""
     assert tiled and scatter_dimension == 0, (tiled, scatter_dimension)
     dispatch_counts["psum_scatter"] += 1
-    comm_bytes["psum_scatter"] += _payload_bytes(operands)
+    _count("psum_scatter", "reduce-scatter", operands, group)
     n = dist.get_world_size(group)
     xs = [x.contiguous() for x in _leaves(operands)]
     outs = [x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:])) for x in xs]
@@ -291,7 +302,7 @@ def all_gather(operands, group, *, axis: int = 0, tiled: bool = True,
     prefill's output gather counts under its own)."""
     assert tiled, tiled
     dispatch_counts[key] += 1
-    comm_bytes[key] += _payload_bytes(operands)
+    _count(key, "all-gather", operands, group)
     n = dist.get_world_size(group)
     outs = []
     for x in _leaves(operands):
@@ -309,7 +320,7 @@ def broadcast(operands, src: int, *, group=None, key: str = "broadcast"):
     them through here, and the per-shard decode loop brings each remote
     shard's partial home."""
     dispatch_counts[key] += 1
-    comm_bytes[key] += _payload_bytes(operands)
+    _count(key, "collective-permute", operands, group)
     for x in _leaves(operands):
         dist.broadcast(x, src=src, group=group)
     return operands

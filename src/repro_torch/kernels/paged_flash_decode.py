@@ -12,6 +12,9 @@ wrapper:
     one in `launch_counts` — or raises on what the kernel does not take
     (d % 8 != 0 among them).  Nothing falls back.
 
+Each call reports its work by shape to the op census (`launch.census`),
+and what runs to do it runs uncounted.
+
 Contract (mirrors `repro_torch.kvcache.pool.KVPool`):
   * ``q`` [B, 1, H, D]; ``k_pages``/``v_pages`` [n_pages, P, KVH, D] — one
     layer's pool storage, shared by all requests (f32 or bf16; q may be
@@ -32,6 +35,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import decode_split, refuse_grad
+from repro_torch.launch import census
 from repro_torch.models.attention import Partial, empty_partial, partial_attention
 
 #: kernel launches on CUDA tensors (comparisons with the plain version and
@@ -119,15 +123,26 @@ def paged_flash_decode_partial(
     unnormalized Partial over this instance's KV shard for every request.
     Refuses inputs that require grad (`kernels.refuse_grad`)."""
     refuse_grad("paged_flash_decode_partial", q, k_pages, v_pages)
-    if q.device.type == "cpu":
-        return paged_flash_decode_partial_plain(
-            q, k_pages, v_pages, block_table, lengths, page_pos,
-            query_pos=query_pos, window=window, softcap=softcap,
-        )
     b, sq, h, d = q.shape
-    if block_table.shape[1] == 0:
-        return empty_partial(b, sq, h, d, device=q.device)
-    out = _launch(q, k_pages, v_pages, block_table, lengths, page_pos,
-                  query_pos=query_pos, window=window, softcap=softcap)
+    if census.active():
+        # reads q, the block table's pages of k and v, the int32 table and
+        # lengths; writes the f32 (o, m, l)
+        nb, mp = block_table.shape[0], block_table.shape[1]
+        page_b = k_pages[0].numel() * k_pages.element_size()
+        census.report_kernel(
+            "K2", census.attention_flops(b, sq, mp * k_pages.shape[1], h, d,
+                                         causal=False, window=window),
+            census.nbytes(q) + 2 * nb * mp * page_b + 4 * nb * mp + 4 * b
+            + 4 * b * sq * h * (d + 2))
+    with census.uncounted():
+        if q.device.type == "cpu":
+            return paged_flash_decode_partial_plain(
+                q, k_pages, v_pages, block_table, lengths, page_pos,
+                query_pos=query_pos, window=window, softcap=softcap,
+            )
+        if block_table.shape[1] == 0:
+            return empty_partial(b, sq, h, d, device=q.device)
+        out = _launch(q, k_pages, v_pages, block_table, lengths, page_pos,
+                      query_pos=query_pos, window=window, softcap=softcap)
     launch_counts["paged_flash_decode_partial"] += 1
     return out

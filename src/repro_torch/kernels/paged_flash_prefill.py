@@ -9,6 +9,9 @@ step with ``n_shards=1``, no carry and a final ``o / l``).  Each wrapper:
   * on a CUDA tensor, launches the kernel (counted in `launch_counts`) or
     raises on what the kernel does not take.  Nothing falls back.
 
+Each call reports its work by shape to the op census (`launch.census`),
+and what runs to do it runs uncounted.
+
 Contract (unchanged from the reference):
   * ``q`` [T, H, D], ``k``/``v`` [T, KVH, D] — the packed batch padded to a
     bucketed T, f32 or bf16 (q, k and v share one type);
@@ -29,6 +32,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import refuse_grad
+from repro_torch.launch import census
 from repro_torch.models import attention as A
 
 #: kernel launches on CUDA tensors, by kernel name (plain CPU calls and
@@ -93,6 +97,22 @@ def packed_flash_prefill_plain(q, k, v, seq_offsets, *, window=None,
     return A.finalize_partial(A.Partial(*part))
 
 
+def _report(name, q, k, v, offsets, carry, *, window, normalize):
+    """Report one K1 / K3 call's work to the census, from shapes: causal
+    pairs over the packed (shard) axis, capped at the window; reads q, k, v,
+    both offset vectors (int32) and the f32 carry, writes o (and m, l)."""
+    if not census.active():
+        return
+    tl, h, d = q.shape
+    rows = tl * h * 4
+    census.report_kernel(
+        name, census.attention_flops(1, tl, k.shape[0], h, d, causal=True,
+                                     window=window),
+        census.nbytes(q, k, v) + 8 * len(offsets)
+        + (0 if carry is None else rows * (d + 2))
+        + rows * (d if normalize else d + 2))
+
+
 # ------------------------------------------------------------ the kernel
 
 
@@ -155,12 +175,14 @@ def packed_flash_prefill(q, k, v, seq_offsets, *, window=None,
     normalized attention output [T, H, D] (f32).  Refuses inputs that
     require grad (`kernels.refuse_grad`)."""
     refuse_grad("packed_flash_prefill", q, k, v)
-    if q.device.type == "cpu":
-        return packed_flash_prefill_plain(q, k, v, seq_offsets, window=window,
-                                          softcap=softcap)
-    out = _launch(q, k, v, seq_offsets, seq_offsets, None, q_shard=0,
-                  k_shard=0, n_shards=1, window=window, softcap=softcap,
-                  normalize=True)
+    _report("K1", q, k, v, seq_offsets, None, window=window, normalize=True)
+    with census.uncounted():
+        if q.device.type == "cpu":
+            return packed_flash_prefill_plain(q, k, v, seq_offsets,
+                                              window=window, softcap=softcap)
+        out = _launch(q, k, v, seq_offsets, seq_offsets, None, q_shard=0,
+                      k_shard=0, n_shards=1, window=window, softcap=softcap,
+                      normalize=True)
     launch_counts["packed_flash_prefill"] += 1
     return out
 
@@ -176,14 +198,16 @@ def packed_flash_prefill_ring_chunk(
     l=0).  Refuses inputs that require grad (`kernels.refuse_grad`)."""
     refuse_grad("packed_flash_prefill_ring_chunk", q, k, v,
                 *(carry if carry is not None else ()))
-    if q.device.type == "cpu":
-        return packed_flash_prefill_ring_chunk_plain(
-            q, k, v, q_offsets, k_offsets, carry, q_shard=q_shard,
-            k_shard=k_shard, n_shards=n_shards, window=window,
-            softcap=softcap,
-        )
-    out = _launch(q, k, v, q_offsets, k_offsets, carry, q_shard=q_shard,
-                  k_shard=k_shard, n_shards=n_shards, window=window,
-                  softcap=softcap, normalize=False)
+    _report("K3", q, k, v, q_offsets, carry, window=window, normalize=False)
+    with census.uncounted():
+        if q.device.type == "cpu":
+            return packed_flash_prefill_ring_chunk_plain(
+                q, k, v, q_offsets, k_offsets, carry, q_shard=q_shard,
+                k_shard=k_shard, n_shards=n_shards, window=window,
+                softcap=softcap,
+            )
+        out = _launch(q, k, v, q_offsets, k_offsets, carry, q_shard=q_shard,
+                      k_shard=k_shard, n_shards=n_shards, window=window,
+                      softcap=softcap, normalize=False)
     launch_counts["packed_flash_prefill_ring_chunk"] += 1
     return out

@@ -18,6 +18,11 @@ log-sum-exp, and its backward is the hand-written kernel of
 runs the plain forward with its LSE (`ref.striped_flash_attention_ref_lse`)
 and the plain backward formula (`ref.striped_flash_attention_bwd_ref`).
 
+On a meta tensor (the dry run, `launch.dryrun`) each entry returns outputs
+of the right shape and dtype and computes nothing.  On every device each
+call reports its work by shape to the op census (`launch.census`), and
+what runs to do it runs uncounted.
+
 Contract: ``q`` [B, Sq, H, D], ``k``/``v`` [B, Sk, KVH, D] of one dtype (f32
 or bf16), ``q_pos`` [Sq] / ``k_pos`` [Sk] integer global positions in any
 order (striped layouts allowed); mask ``q_pos >= k_pos`` when causal and
@@ -38,6 +43,7 @@ from repro_torch.kernels.ref import (
     striped_flash_attention_ref,
     striped_flash_attention_ref_lse,
 )
+from repro_torch.launch import census
 
 #: kernel launches on CUDA tensors (comparisons with the plain version and
 #: CPU calls are not launches of the kernel)
@@ -72,6 +78,30 @@ def _check_operands(q, k, v, window):
                          "h % kvh == 0, h / kvh <= 64, d % 8 == 0, d <= 256)")
     if window is not None and window < 1:
         raise ValueError(f"striped_attention kernel: window {window} < 1")
+
+
+def _report(q, k, *, causal, window, lse=False, o_f32=False,
+            backward=False):
+    """Report one call's work to the census, from shapes: the forward reads
+    q, k, v and both position vectors (int32) and writes o (and the f32
+    row LSE); the backward reads q, k, v, o, do, the LSE and the positions
+    and writes dq, dk, dv."""
+    if not census.active():
+        return
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    es = q.element_size()
+    q_b, kv_b = q.numel() * es, 2 * k.numel() * es
+    pos_b, lse_b = 4 * (sq + sk), 4 * b * h * sq
+    flops = census.attention_flops(b, sq, sk, h, d, causal=causal,
+                                   window=window, backward=backward)
+    if backward:
+        census.report_kernel("K4 bwd", flops,
+                             3 * q_b + kv_b + lse_b + pos_b + q_b + kv_b)
+    else:
+        o_b = q.numel() * (4 if o_f32 else es)
+        census.report_kernel("K4", flops, q_b + kv_b + pos_b + o_b
+                             + (lse_b if lse else 0))
 
 
 def _mask_args(causal, window, softcap):
@@ -149,26 +179,40 @@ class StripedFlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, q_pos, k_pos, causal, window, softcap):
         kw = dict(causal=causal, window=window, softcap=softcap)
-        if q.device.type == "cpu":
-            o, lse = striped_flash_attention_ref_lse(q, k, v, q_pos, k_pos, **kw)
-        else:
-            o, lse = _launch(q, k, v, q_pos, k_pos, lse=True, **kw)
-            launch_counts["striped_flash_attention"] += 1
-        ctx.save_for_backward(q, k, v, o, lse,
-                              torch.as_tensor(q_pos).to(q.device),
-                              torch.as_tensor(k_pos).to(q.device))
+        _report(q, k, causal=causal, window=window, lse=True)
+        with census.uncounted():
+            if q.device.type == "cpu":
+                # contiguous, as the kernel's output is (the ops after it
+                # then run alike on every device)
+                o, lse = (x.contiguous() for x in striped_flash_attention_ref_lse(
+                    q, k, v, q_pos, k_pos, **kw))
+            elif q.device.type == "meta":  # contiguous, as the kernel's
+                o = q.new_empty(q.shape)
+                lse = q.new_empty((q.shape[0], q.shape[2], q.shape[1]),
+                                  dtype=torch.float32)
+            else:
+                o, lse = _launch(q, k, v, q_pos, k_pos, lse=True, **kw)
+                launch_counts["striped_flash_attention"] += 1
+            ctx.save_for_backward(q, k, v, o, lse,
+                                  torch.as_tensor(q_pos).to(q.device),
+                                  torch.as_tensor(k_pos).to(q.device))
         ctx.kw = kw
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse, qp, kp = ctx.saved_tensors
-        if q.device.type == "cpu":
-            dq, dk, dv = striped_flash_attention_bwd_ref(q, k, v, o, do, lse, qp,
-                                                         kp, **ctx.kw)
-        else:
-            dq, dk, dv = _launch_bwd(q, k, v, o, do, lse, qp, kp, **ctx.kw)
-            launch_counts["striped_flash_attention_bwd"] += 1
+        _report(q, k, causal=ctx.kw["causal"], window=ctx.kw["window"],
+                backward=True)
+        with census.uncounted():
+            if q.device.type == "cpu":
+                dq, dk, dv = (x.contiguous() for x in striped_flash_attention_bwd_ref(
+                    q, k, v, o, do, lse, qp, kp, **ctx.kw))
+            elif q.device.type == "meta":
+                dq, dk, dv = (x.new_empty(x.shape) for x in (q, k, v))
+            else:
+                dq, dk, dv = _launch_bwd(q, k, v, o, do, lse, qp, kp, **ctx.kw)
+                launch_counts["striped_flash_attention_bwd"] += 1
         return dq, dk, dv, None, None, None, None, None
 
 
@@ -184,12 +228,16 @@ def striped_flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
                                     or v.requires_grad):
         return StripedFlashAttentionFn.apply(q, k, v, q_pos, k_pos, causal,
                                              window, softcap)
-    if q.device.type == "cpu":
-        return striped_flash_attention_plain(q, k, v, q_pos, k_pos,
-                                             causal=causal, window=window,
-                                             softcap=softcap)
-    out = _launch(q, k, v, q_pos, k_pos, causal=causal, window=window,
-                  softcap=softcap)
+    _report(q, k, causal=causal, window=window)
+    with census.uncounted():
+        if q.device.type == "cpu":
+            return striped_flash_attention_plain(
+                q, k, v, q_pos, k_pos, causal=causal, window=window,
+                softcap=softcap).contiguous()
+        if q.device.type == "meta":
+            return q.new_empty(q.shape)
+        out = _launch(q, k, v, q_pos, k_pos, causal=causal, window=window,
+                      softcap=softcap)
     launch_counts["striped_flash_attention"] += 1
     return out
 
@@ -209,9 +257,15 @@ def striped_flash_attention_lse(q, k, v, q_pos, k_pos, *, causal: bool = True,
 
     refuse_grad("striped_flash_attention_lse", q, k, v)
     kw = dict(causal=causal, window=window, softcap=softcap)
-    if q.device.type == "cpu":
-        return striped_flash_attention_ref_lse(q, k, v, q_pos, k_pos,
-                                               o_acc=True, **kw)
-    out = _launch(q, k, v, q_pos, k_pos, lse=True, o_f32=True, **kw)
+    _report(q, k, causal=causal, window=window, lse=True, o_f32=True)
+    with census.uncounted():
+        if q.device.type == "cpu":
+            return tuple(x.contiguous() for x in striped_flash_attention_ref_lse(
+                q, k, v, q_pos, k_pos, o_acc=True, **kw))
+        if q.device.type == "meta":
+            b, sq, h, _ = q.shape
+            return (q.new_empty(q.shape, dtype=torch.float32),
+                    q.new_empty((b, h, sq), dtype=torch.float32))
+        out = _launch(q, k, v, q_pos, k_pos, lse=True, o_f32=True, **kw)
     launch_counts["striped_flash_attention"] += 1
     return out

@@ -98,6 +98,77 @@ def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
     return _device_mesh(device, shape, axes)
 
 
+_fake_meshes: Dict[bool, object] = {}
+
+
+def fake_production_mesh(*, multi_pod: bool = False):
+    """The production mesh of a fake world, for the dry run
+    (`launch.dryrun`): rank 0 of a world of 256 (or 512) ranks, opened on
+    PyTorch's fake process group (``cpu:fake,meta:fake``, a `FakeStore`:
+    collectives complete at once and move nothing), with a CPU
+    `DeviceMesh` of shape (16, 16) ("data", "model") or (2, 16, 16)
+    ("pod", "data", "model").  Tensors on it are meta tensors: no card and
+    no memory are needed.
+
+    A process holds one default group, so moving between the single-pod
+    and the multi-pod world destroys the fake group and opens the other;
+    an open group that is not this fake world raises.  While the fake
+    world is open, DTensor's shard-to-shard redistribution runs its
+    all-to-all (as on NCCL) instead of the all-gather + chunk it uses on
+    CPU meshes for gloo, which has no all-to-all."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    world = 512 if multi_pod else 256
+    if dist.is_initialized():
+        if not _fake_meshes:
+            raise RuntimeError("a process group that is not the dry run's "
+                               "fake world is open")
+        if dist.get_world_size() != world:
+            close_fake_world()
+    if not dist.is_initialized():
+        dist.init_process_group("cpu:fake,meta:fake", store=FakeStore(),
+                                rank=0, world_size=world)
+        _alltoall_as_on_nccl(True)
+    if multi_pod not in _fake_meshes:
+        shape = (2, 16, 16) if multi_pod else (16, 16)
+        axes = ("pod",) + AXES if multi_pod else AXES
+        _fake_meshes[multi_pod] = init_device_mesh("cpu", shape,
+                                                   mesh_dim_names=axes)
+    return _fake_meshes[multi_pod]
+
+
+def close_fake_world() -> None:
+    """Destroy the dry run's fake world, if it is open."""
+    if _fake_meshes and dist.is_initialized():
+        dist.destroy_process_group()
+    _fake_meshes.clear()
+    _alltoall_as_on_nccl(False)
+
+
+_cpu_alltoall = None
+
+
+def _alltoall_as_on_nccl(on: bool) -> None:
+    global _cpu_alltoall
+    from torch.distributed.tensor import placement_types as pt
+
+    if on and _cpu_alltoall is None:
+        import torch.distributed._functional_collectives as funcol
+
+        _cpu_alltoall = pt.shard_dim_alltoall
+
+        def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+            group = funcol._resolve_group((mesh, mesh_dim))
+            return torch.ops._dtensor.shard_dim_alltoall(
+                input, gather_dim, shard_dim,
+                funcol._group_or_group_name(group))
+
+        pt.shard_dim_alltoall = alltoall
+    elif not on and _cpu_alltoall is not None:
+        pt.shard_dim_alltoall, _cpu_alltoall = _cpu_alltoall, None
+
+
 def make_test_mesh(data: int = 4, model: int = 2, pod: int = 0, *,
                    device="cuda"):
     """Small mesh over the open world (``data * model`` ranks; ``pod``

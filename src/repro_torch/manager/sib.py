@@ -45,12 +45,21 @@ class DecodeCoeffs:
 @dataclass
 class HardwareSpec:
     """NVIDIA H100 SXM defaults (per card), from NVIDIA's H100 data sheet:
-    989 TFLOP/s dense bf16, 3.35 TB/s HBM3, NVLink 900 GB/s total = 450 GB/s
-    each way.  One card per elastic instance."""
+    989 TFLOP/s dense bf16, 3.35 TB/s HBM3, 80 GB HBM3, NVLink 900 GB/s
+    total = 450 GB/s each way.  One card per elastic instance.
+
+    ``net_bw`` is the card's link out of its node: an HGX H100 node pairs
+    each of its 8 cards with one NDR InfiniBand adapter, 400 Gb/s = 50 GB/s
+    each way (NVIDIA DGX H100 data sheet: eight ConnectX-7 400 Gb/s ports
+    for compute traffic).  A collective group that spans nodes, as every
+    "data" or "model" group of the (16, 16) production meshes does, runs at
+    that rate; NVLink's ``ici_bw`` holds only inside one node."""
 
     peak_flops: float = 989e12  # bf16, dense
     hbm_bw: float = 3.35e12
     ici_bw: float = 450e9  # NVLink, each way
+    hbm_bytes: float = 80e9
+    net_bw: float = 50e9  # NDR InfiniBand, per card, each way
     chips_per_instance: int = 1
     mfu: float = 0.45  # sustained fraction for the napkin bootstrap
     decode_hbm_eff: float = 0.6

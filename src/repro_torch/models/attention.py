@@ -13,6 +13,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.launch import census
+
 NEG_INF = -1e30
 
 
@@ -88,6 +90,11 @@ def partial_attention(
     scale: Optional[float] = None,
     softcap: Optional[float] = None,
 ) -> Partial:
+    with census.scope("esp_partial_attention"):
+        return _partial_attention(q, k, v, mask, scale, softcap)
+
+
+def _partial_attention(q, k, v, mask, scale=None, softcap=None) -> Partial:
     b, sq, h, d = q.shape
     kvh = k.shape[2]
     k = gqa_expand(k, h // kvh)

@@ -112,7 +112,10 @@ def apply_moe(p: dict, x: torch.Tensor, *, top_k: int, capacity_factor: float,
     flat_t = slots // top_k  # owning token of each slot
     order = torch.argsort(flat_e, stable=True)
     se, sw, st = flat_e[order], flat_w[order], flat_t[order]
-    counts = torch.bincount(flat_e, minlength=e)  # [E]
+    # [E] tokens per expert (bincount's integers; index_add_ also runs on
+    # meta tensors, which the dry run routes)
+    counts = torch.zeros(e, dtype=torch.long, device=dev).index_add_(
+        0, flat_e, torch.ones_like(flat_e))
     start = torch.cumsum(counts, 0) - counts  # exclusive prefix
     pos = slots - start[se]  # position within the expert's bucket
     keep = pos < cap

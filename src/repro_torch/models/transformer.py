@@ -511,7 +511,8 @@ def _last_position(x, positions):
         sel = (pos == pos.max()).to(x.dtype)
         return torch.einsum("bsd,s->bd", x, sel)[:, None, :]
     pos = torch.as_tensor(positions, device=x.device).expand(t)
-    return x[:, int(torch.argmax(pos))][:, None, :]
+    # selected on the device: no host read (and none on meta tensors)
+    return torch.index_select(x, 1, torch.argmax(pos).reshape(1))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -22,6 +22,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import census
+
 # padding of a prompt to a chunk multiple: the input gate -> -1e9 (no
 # contribution), the forget gate -> +40 (log sigmoid ~ 0: the state passes
 # through unchanged)
@@ -116,33 +118,34 @@ def mlstm_chunkwise(
             _chunks(qf, nc, chunk), _chunks(kf, nc, chunk),
             _chunks(vf, nc, chunk), _chunks(ig.float(), nc, chunk),
             _chunks(logf, nc, chunk)):
-        b = torch.cumsum(lfk_, dim=1)  # [B,L,H] inclusive cumsum of logf
-        # stabilizers
-        m_intra = b + torch.cummax(gk_ - b, dim=1).values  # [B,L,H]
-        m_inter = b + m_prev[:, None, :]
-        m_i = torch.maximum(m_intra, m_inter)
-        # inter-chunk contribution
-        w_inter = torch.exp(m_inter - m_i)
-        num_inter = torch.einsum("blhk,bhvk->blhv", qk_, c_prev) * w_inter[..., None]
-        den_inter = torch.einsum("blhk,bhk->blh", qk_, n_prev) * w_inter
-        # intra-chunk scores
-        s = torch.einsum("bihk,bjhk->bijh", qk_, kk_)  # [B,L,L,H]
-        dmat = (b[:, :, None, :] - b[:, None, :, :] + gk_[:, None, :, :]
-                - m_i[:, :, None, :])
-        s = s * torch.where(tri, torch.exp(dmat), torch.zeros((), device=s.device))
-        num = num_inter + torch.einsum("bijh,bjhv->bihv", s, vk_)
-        den = den_inter + s.sum(dim=2)  # [B,L,H]
-        hs.append(num / torch.maximum(den.abs(), torch.exp(-m_i))[..., None])
-        # chunk-final state
-        btot = b[:, -1, :]  # [B,H]
-        m_loc = (btot[:, None, :] - b + gk_).amax(dim=1)
-        m_new = torch.maximum(btot + m_prev, m_loc)
-        wj = torch.exp(btot[:, None, :] - b + gk_ - m_new[:, None, :])  # [B,L,H]
-        carry = torch.exp(btot + m_prev - m_new)
-        c_prev = c_prev * carry[:, :, None, None] + torch.einsum(
-            "blh,blhv,blhk->bhvk", wj, vk_, kk_)
-        n_prev = n_prev * carry[:, :, None] + torch.einsum("blh,blhk->bhk", wj, kk_)
-        m_prev = m_new
+        with census.scope("mlstm_chunk_body"):
+            b = torch.cumsum(lfk_, dim=1)  # [B,L,H] inclusive cumsum of logf
+            # stabilizers
+            m_intra = b + torch.cummax(gk_ - b, dim=1).values  # [B,L,H]
+            m_inter = b + m_prev[:, None, :]
+            m_i = torch.maximum(m_intra, m_inter)
+            # inter-chunk contribution
+            w_inter = torch.exp(m_inter - m_i)
+            num_inter = torch.einsum("blhk,bhvk->blhv", qk_, c_prev) * w_inter[..., None]
+            den_inter = torch.einsum("blhk,bhk->blh", qk_, n_prev) * w_inter
+            # intra-chunk scores
+            s = torch.einsum("bihk,bjhk->bijh", qk_, kk_)  # [B,L,L,H]
+            dmat = (b[:, :, None, :] - b[:, None, :, :] + gk_[:, None, :, :]
+                    - m_i[:, :, None, :])
+            s = s * torch.where(tri, torch.exp(dmat), torch.zeros((), device=s.device))
+            num = num_inter + torch.einsum("bijh,bjhv->bihv", s, vk_)
+            den = den_inter + s.sum(dim=2)  # [B,L,H]
+            hs.append(num / torch.maximum(den.abs(), torch.exp(-m_i))[..., None])
+            # chunk-final state
+            btot = b[:, -1, :]  # [B,H]
+            m_loc = (btot[:, None, :] - b + gk_).amax(dim=1)
+            m_new = torch.maximum(btot + m_prev, m_loc)
+            wj = torch.exp(btot[:, None, :] - b + gk_ - m_new[:, None, :])  # [B,L,H]
+            carry = torch.exp(btot + m_prev - m_new)
+            c_prev = c_prev * carry[:, :, None, None] + torch.einsum(
+                "blh,blhv,blhk->bhvk", wj, vk_, kk_)
+            n_prev = n_prev * carry[:, :, None] + torch.einsum("blh,blhk->bhk", wj, kk_)
+            m_prev = m_new
     out = torch.cat(hs, dim=1)[:, :t_orig]
     return out.to(q.dtype), MLSTMState(c_prev, n_prev, m_prev)
 
@@ -263,20 +266,21 @@ def slstm_scan(p, xm, cfg, state: SLSTMState) -> Tuple[torch.Tensor, SLSTMState]
     c, n, hid, m = state
     hs = []
     for wxt in wx.unbind(1):
-        rec = torch.einsum("bhd,ghde->bghe", hid.reshape(-1, h, dh), r)
-        pre = wxt + rec.reshape(-1, 4 * d_in) + bias
-        zt = torch.tanh(pre[:, :d_in])
-        it = pre[:, d_in:2 * d_in]
-        ft = pre[:, 2 * d_in:3 * d_in]
-        ot = torch.sigmoid(pre[:, 3 * d_in:])
-        m_new = torch.maximum(ft + m, it)
-        iprime = torch.exp(it - m_new)
-        fprime = torch.exp(ft + m - m_new)
-        c = fprime * c + iprime * zt
-        n = fprime * n + iprime
-        hid = ot * (c / n)
-        m = m_new
-        hs.append(hid)
+        with census.scope("slstm_step_body"):
+            rec = torch.einsum("bhd,ghde->bghe", hid.reshape(-1, h, dh), r)
+            pre = wxt + rec.reshape(-1, 4 * d_in) + bias
+            zt = torch.tanh(pre[:, :d_in])
+            it = pre[:, d_in:2 * d_in]
+            ft = pre[:, 2 * d_in:3 * d_in]
+            ot = torch.sigmoid(pre[:, 3 * d_in:])
+            m_new = torch.maximum(ft + m, it)
+            iprime = torch.exp(it - m_new)
+            fprime = torch.exp(ft + m - m_new)
+            c = fprime * c + iprime * zt
+            n = fprime * n + iprime
+            hid = ot * (c / n)
+            m = m_new
+            hs.append(hid)
     out = torch.stack(hs, dim=1)  # [B,T,d_in]
     return out.to(xm.dtype), SLSTMState(c, n, hid, m)
 

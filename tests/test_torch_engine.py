@@ -88,6 +88,8 @@ def test_port_imports_no_jax_and_no_reference():
         "assert 'repro_torch.launch.train' in mods, mods\n"
         "assert 'repro_torch.launch.sharding' in mods, mods\n"
         "assert 'repro_torch.core.ssm_sp' in mods, mods\n"
+        "assert 'repro_torch.launch.dryrun' in mods, mods\n"
+        "assert 'repro_torch.launch.census' in mods, mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )

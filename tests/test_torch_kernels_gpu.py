@@ -832,3 +832,55 @@ def test_serving_kernels_refuse_grad_on_card(cuda_device):
     kd = torch.randn(2, 8, 2, 16, device=cuda_device)
     with pytest.raises(RuntimeError, match="no backward"):
         tfd.flash_decode_partial(qd, kd, kd, torch.tensor([3, 8], device=cuda_device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_census_work_on_card_equals_meta(cuda_device, dtype):
+    """Each kernel reports its work to the op census (`launch.census`) by
+    shape: a launch on the card counts what the same call on meta tensors
+    counts (K4 forward, its LSE entry and backward, K5), and the launch's
+    own preparation is not counted."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.census import Census
+
+    dt = getattr(torch, dtype)
+    b, sq, sk, h, kvh, d = 2, 96, 160, 4, 2, 32
+
+    def run(dev):
+        g = torch.Generator().manual_seed(3)
+
+        def mk(*s):
+            x = torch.randn(*s, generator=g).to(dt)
+            return x.to(dev) if dev == "cuda" else x.new_empty(x.shape, device=dev)
+
+        q, k, v = mk(b, sq, h, d), mk(b, sk, kvh, d), mk(b, sk, kvh, d)
+        qp = torch.arange(sk - sq, sk, device=dev)
+        kp = torch.arange(sk, device=dev)
+        qd = mk(b, 1, h, d)
+        lens = torch.tensor([sk, 17], device=dev)
+        out = {}
+        with Census() as c:
+            tsa.striped_flash_attention(q, k, v, qp, kp, causal=True, window=64)
+        out["K4"] = c.result()
+        with Census() as c:
+            ops.attention_partial(q, k, v, qp, kp, causal=True)
+        out["K4 lse"] = c.result()
+        q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+        with Census() as c:
+            o = tsa.striped_flash_attention(q, k, v, qp, kp, causal=True)
+            torch.autograd.grad(o, (q, k, v), torch.ones_like(o))
+        out["K4 bwd"] = c.result()
+        with Census() as c, torch.no_grad():
+            ops.decode_partial(qd, k.detach(), v.detach(), lens, window=100)
+        out["K5"] = c.result()
+        return out
+
+    launched = dict(tsa.launch_counts)
+    got = run("cuda")
+    assert tsa.launch_counts["striped_flash_attention_bwd"] > launched.get(
+        "striped_flash_attention_bwd", 0)
+    assert got == run("meta")
+    assert got["K4"]["kernels"]["K4"]["calls"] == 1
+    assert got["K4"]["flops"] == got["K4"]["kernels"]["K4"]["flops"]
+    assert set(got["K4 bwd"]["kernels"]) == {"K4", "K4 bwd"}
