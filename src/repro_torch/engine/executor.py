@@ -32,6 +32,14 @@ the ranks of a DoP>1 group, the multi-master decode merge and the unified
 step by collectives (K1-K3 per rank), every rank running the engine in
 lockstep.
 
+Each entry (``prefill``, ``decode``, ``unified``) is a span of
+`repro_torch.obs` (``executor.<entry>``) with one child per stage:
+``executor.plan`` (tables, shards, packing, uploads), ``executor.launch``
+(the model call, until it returns on the host), ``executor.wait`` (the
+stream drained), ``executor.d2h`` (the copies to the host) and
+``executor.sample`` (the value guard, sampling and the KV stash).  The
+serial paths make one set per request, as they make one model call each.
+
 PyTorch runs eagerly, so the reference's jitted-program LRU has no
 counterpart; the padding buckets stay so that padded shapes and striping
 (``T % dop == 0``) match the reference exactly.
@@ -42,6 +50,8 @@ from typing import Any, Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch import obs
 
 
 class _USeg(NamedTuple):
@@ -95,12 +105,6 @@ class LocalExecutor:
         for pool in self.eng.pool.pools:
             pool.bind_device(self.device)
 
-    @property
-    def _prefill_programs(self) -> Dict:
-        """Compiled-program cache probe of the reference: eager PyTorch
-        compiles nothing, so it is always empty."""
-        return {}
-
     def on_instance_failed(self, inst: int) -> None:
         """Failure notification from the engine; the executor holds no
         per-instance state."""
@@ -139,12 +143,33 @@ class LocalExecutor:
     def _to_dev(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
+    @staticmethod
+    def _to_host(*tensors) -> List[Any]:
+        """A step's outputs as numpy arrays (None stays None): the stream is
+        waited for first (``executor.wait``; the copy would wait for it
+        anyway), then each tensor is copied (``executor.d2h``, value: the
+        bytes that came to the host)."""
+        with obs.span("executor.wait"):
+            for t in tensors:
+                if t is not None and t.is_cuda:
+                    torch.cuda.current_stream(t.device).synchronize()
+                    break
+        with obs.span("executor.d2h") as sp:
+            out = [None if t is None else t.cpu().numpy() for t in tensors]
+            sp.value = sum(x.nbytes for x in out if x is not None)
+        return out
+
     # ------------------------------------------------------------- prefill
     def prefill(self, batch) -> None:
         """Dispatch one prefill batch: packed fast path when armed and every
         prompt is materialized, per-request serial otherwise.  Requests whose
         reserved placement sits on a failed instance are pruned and requeued
         for recompute; the rest of the batch keeps the packed path."""
+        with obs.span("executor.prefill",
+                      sum(r.input_len for r in batch.requests)):
+            self._prefill(batch)
+
+    def _prefill(self, batch) -> None:
         eng = self.eng
         lost = [r for r in batch.requests if eng._placement_lost(batch, r)]
         if lost:
@@ -172,10 +197,11 @@ class LocalExecutor:
         sampled from the packed logits, and the per-layer KV output is
         scattered straight into each instance's pool mirror at the slots the
         scheduler reserved (`pool.fill_packed` write-through)."""
-        lens, packed = self._pack_prefill(batch)
+        with obs.span("executor.plan"):
+            lens, packed = self._pack_prefill(batch)
         logits, k_packed, v_packed = self._prefill_step(*packed)
-        self._emit_prefill(batch, lens, self._agree(logits).cpu().numpy(),
-                           k_packed, v_packed)
+        (logits,) = self._to_host(self._agree(logits))
+        self._emit_prefill(batch, lens, logits, k_packed, v_packed)
 
     def _pack_prefill(self, batch):
         """Host-side packing of a prefill batch: (prompt lengths, (dop,
@@ -216,15 +242,16 @@ class LocalExecutor:
         impl = self._packed_prefill_impl
         prev_impl = eng.model.attn_impl
         eng.model.attn_impl = impl
-        self._arm_packed_step(impl, offsets, dop)
-        try:
-            logits, (k_packed, v_packed) = eng.model.prefill_packed(
-                eng.params, {"tokens": self._to_dev(tokens)[None]},
-                self._to_dev(positions), self._to_dev(last_idx),
-            )
-        finally:
-            impl.end_step()
-            eng.model.attn_impl = prev_impl
+        with obs.span("executor.launch"):
+            self._arm_packed_step(impl, offsets, dop)
+            try:
+                logits, (k_packed, v_packed) = eng.model.prefill_packed(
+                    eng.params, {"tokens": self._to_dev(tokens)[None]},
+                    self._to_dev(positions), self._to_dev(last_idx),
+                )
+            finally:
+                impl.end_step()
+                eng.model.attn_impl = prev_impl
         return logits, k_packed, v_packed
 
     def _agree(self, logits):
@@ -242,11 +269,7 @@ class LocalExecutor:
         (``k_packed`` may then be None)."""
         eng = self.eng
         reqs = batch.requests
-        for b, r in enumerate(reqs):
-            row = self._guard_logits(r, logits[b])
-            if row is None:
-                continue  # quarantined: no first token, engine requeues
-            r.output_tokens.append(eng._sample_token(row))
+        self._sample_rows(reqs, logits)
         if not eng.pool.pools[0].store_values:
             return
         starts = np.concatenate([[0], np.cumsum(lens)])
@@ -286,28 +309,33 @@ class LocalExecutor:
             # dispatch-counted so tests can assert the packed paths (incl.
             # DoP>1 ring fusion) never fall back to serial prefill
             ops.dispatch_counts["prefill_serial_model"] += 1
-            toks = self._to_dev(np.asarray(r.prompt, np.int64)[None])
-            logits, cache = eng.model.prefill(eng.params, {"tokens": toks})
-            row = self._guard_logits(r, logits[0, -1].cpu().numpy())
-            if row is None:
+            with obs.span("executor.plan"):
+                toks = self._to_dev(np.asarray(r.prompt, np.int64)[None])
+            with obs.span("executor.launch"):
+                logits, cache = eng.model.prefill(eng.params, {"tokens": toks})
+            # [L, T, KVH, D]; the ssm family has no KV
+            kv = ((cache.k[:, 0].float(), cache.v[:, 0].float())
+                  if cache.k is not None else (None, None))
+            row, k, v = self._to_host(logits[0, -1], *kv)
+            if not self._sample_rows([r], row[None]):
                 continue  # quarantined: no first token, engine requeues
-            r.output_tokens.append(eng._sample_token(row))
-            if cache.k is not None:  # the ssm family has no KV
-                k = cache.k[:, 0].float().cpu().numpy()  # [L, T, KVH, D]
-                v = cache.v[:, 0].float().cpu().numpy()
+            if k is not None:
                 for inst, positions in batch.placement[r.rid].items():
                     if positions and inst not in eng.failed:
-                        eng.pool.pools[inst].fill(
+                        eng.pool.pools[inst].fill_rows([(
                             r.rid, positions, k[:, positions], v[:, positions]
-                        )
+                        )])
             if cache.ssm is not None:
                 eng._real_cache[r.rid] = cache.ssm  # stays on the device
 
     # -------------------------------------------------------------- decode
     def decode(self, g) -> None:
-        if self._paged_impl is not None and self.eng.pool.pools[0].store_values:
-            return self.decode_paged(g)
-        return self.decode_serial(g)
+        paged = (self._paged_impl is not None
+                 and self.eng.pool.pools[0].store_values)
+        with obs.span("executor.decode", len(g.requests)):
+            if paged:
+                return self.decode_paged(g)
+            return self.decode_serial(g)
 
     def decode_paged(self, g) -> None:
         """Gather-free batched decode: ONE model step for the whole group;
@@ -316,31 +344,33 @@ class LocalExecutor:
         from repro_torch.models.transformer import Cache
 
         eng = self.eng
-        rids = [r.rid for r in g.requests]
-        n_cached = np.array([r.seq_len - 1 for r in g.requests], np.int32)
-        shards, covered = [], np.zeros(len(rids), np.int64)
-        for pool in eng.pool.pools:
-            if pool.instance_id in eng.failed:
-                continue
-            table, lengths = pool.block_table(rids)
-            if not lengths.any():
-                continue
-            covered += lengths
-            shards.append(self._paged_shard(pool, table, lengths))
-        # cache holds tokens 0..seq_len-2; the processed token's KV is
-        # produced by this step and appended at the master afterwards
-        assert (covered == n_cached).all(), (covered, n_cached)
-        toks = self._to_dev(np.asarray([r.output_tokens[-1] for r in g.requests],
-                                       np.int64))
-        cache = Cache(length=self._to_dev(n_cached))
+        with obs.span("executor.plan"):
+            rids = [r.rid for r in g.requests]
+            n_cached = np.array([r.seq_len - 1 for r in g.requests], np.int32)
+            shards, covered = [], np.zeros(len(rids), np.int64)
+            for pool in eng.pool.pools:
+                if pool.instance_id in eng.failed:
+                    continue
+                table, lengths = pool.block_table(rids)
+                if not lengths.any():
+                    continue
+                covered += lengths
+                shards.append(self._paged_shard(pool, table, lengths))
+            # cache holds tokens 0..seq_len-2; the processed token's KV is
+            # produced by this step and appended at the master afterwards
+            assert (covered == n_cached).all(), (covered, n_cached)
+            toks = self._to_dev(np.asarray(
+                [r.output_tokens[-1] for r in g.requests], np.int64))
+            cache = Cache(length=self._to_dev(n_cached))
         prev_impl = eng.model.attn_impl
         eng.model.attn_impl = self._paged_impl
-        self._paged_impl.begin_step(shards)
-        try:
-            logits, _, kvs = eng.model.decode(eng.params, toks, cache)
-        finally:
-            self._paged_impl.end_step()
-            eng.model.attn_impl = prev_impl
+        with obs.span("executor.launch"):
+            self._paged_impl.begin_step(shards)
+            try:
+                logits, _, kvs = eng.model.decode(eng.params, toks, cache)
+            finally:
+                self._paged_impl.end_step()
+                eng.model.attn_impl = prev_impl
         self._emit_decoded(g, self._agree(logits), kvs)
 
     def _paged_shard(self, pool, table, lengths):
@@ -362,17 +392,29 @@ class LocalExecutor:
         it into the pool once the slot is allocated, and the next decode's
         mirror sync uploads it (device -> host -> device, as the reference
         does).  logits [B, V]; kvs (k, v) each [L, B, 1, KVH, D]."""
+        kv = (kvs[0].float(), kvs[1].float()) if kvs is not None else (None, None)
+        logits, k_host, v_host = self._to_host(logits, *kv)
+        self._sample_rows(g.requests, logits, k_host, v_host)
+
+    def _sample_rows(self, reqs, logits, k_host=None, v_host=None) -> int:
+        """Greedy tokens from host logits rows [>=B, V], each NaN-guarded
+        (a quarantined request gets no token and no KV stash), with each
+        sampled request's new KV (``k_host`` / ``v_host`` [L, B, ...], decode
+        only) stashed for the engine to fill once its slot is allocated.
+        One ``executor.sample`` record; value: tokens emitted."""
         eng = self.eng
-        logits = logits.cpu().numpy()
-        k_host = kvs[0].float().cpu().numpy() if kvs is not None else None
-        v_host = kvs[1].float().cpu().numpy() if kvs is not None else None
-        for b, r in enumerate(g.requests):
-            row = self._guard_logits(r, logits[b])
-            if row is None:
-                continue  # quarantined: no token, no KV stash
-            r.output_tokens.append(eng._sample_token(row))
-            if k_host is not None:
-                eng._pending_kv[r.rid] = (k_host[:, b], v_host[:, b])
+        with obs.span("executor.sample") as sp:
+            n = 0
+            for b, r in enumerate(reqs):
+                row = self._guard_logits(r, logits[b])
+                if row is None:
+                    continue  # quarantined: no token, engine requeues
+                r.output_tokens.append(eng._sample_token(row))
+                n += 1
+                if k_host is not None:
+                    eng._pending_kv[r.rid] = (k_host[:, b], v_host[:, b])
+            sp.value = n
+        return n
 
     def decode_serial(self, g) -> None:
         """Per-request decode over a dense cache gathered from the pools on
@@ -383,35 +425,36 @@ class LocalExecutor:
 
         eng = self.eng
         for r in g.requests:
-            positions, k, v = eng.pool.gather_request(r.rid)
-            # cache holds tokens 0..seq_len-2; the processed token's KV is
-            # produced by this step and appended at the master afterwards
-            n_cached = r.seq_len - 1
-            if k is not None:
-                assert len(positions) == n_cached, (len(positions), n_cached)
-            dt = eng.model.dtype
-            cache = Cache(
-                k=self._to_dev(k[:, None]).to(dt) if k is not None else None,
-                v=self._to_dev(v[:, None]).to(dt) if v is not None else None,
-                length=self._to_dev(np.asarray([n_cached], np.int32)),
-                ssm=eng._real_cache.get(r.rid),
-            )
-            logits, new_cache, kvs = eng.model.decode(
-                eng.params, self._to_dev(np.asarray([r.output_tokens[-1]],
-                                                    np.int64)), cache
-            )
-            row = self._guard_logits(r, logits[0].cpu().numpy())
-            if row is None:
+            with obs.span("executor.plan"):
+                positions, k, v = eng.pool.gather_request(r.rid)
+                # cache holds tokens 0..seq_len-2; the processed token's KV
+                # is produced by this step and appended at the master
+                # afterwards
+                n_cached = r.seq_len - 1
+                if k is not None:
+                    assert len(positions) == n_cached, (len(positions),
+                                                        n_cached)
+                dt = eng.model.dtype
+                dev = (lambda x: self._to_dev(x[:, None]).to(dt)
+                       if x is not None else None)
+                cache = Cache(
+                    k=dev(k), v=dev(v),
+                    length=self._to_dev(np.asarray([n_cached], np.int32)),
+                    ssm=eng._real_cache.get(r.rid),
+                )
+                tok = self._to_dev(np.asarray([r.output_tokens[-1]], np.int64))
+            with obs.span("executor.launch"):
+                logits, new_cache, kvs = eng.model.decode(eng.params, tok,
+                                                          cache)
+            # [L, 1, 1, KVH, D]: stashed for _on_decode_done to fill once
+            # the slot is allocated
+            kv = ((kvs[0].float(), kvs[1].float()) if kvs is not None
+                  else (None, None))
+            row, k_new, v_new = self._to_host(logits[0], *kv)
+            if not self._sample_rows([r], row[None], k_new, v_new):
                 continue  # quarantined: no token, no cache/KV update
-            r.output_tokens.append(eng._sample_token(row))
             if new_cache.ssm is not None:
                 eng._real_cache[r.rid] = new_cache.ssm
-            if kvs is not None:
-                # stash; _on_decode_done fills it once the slot is allocated
-                eng._pending_kv[r.rid] = (
-                    kvs[0][:, 0].float().cpu().numpy(),  # [L, 1, KVH, D]
-                    kvs[1][:, 0].float().cpu().numpy(),
-                )
 
     # ------------------------------------------------------------- unified
     @property
@@ -547,66 +590,83 @@ class LocalExecutor:
         (`core.unified`).  First/next tokens are sampled from the packed
         logits, prefill chunk KV write-throughs at the reserved slots, and
         decode KV is stashed exactly like `decode_paged`."""
-        self._unified_local(work, self._unified_segments(work))
+        with obs.span("executor.unified") as sp:
+            segs = self._unified_segments(work)
+            sp.value = sum(s.ln for s in segs)
+            self._unified_run(work, segs)
 
-    def _unified_local(self, work, segs) -> None:
+    def _unified_run(self, work, segs) -> None:
         eng = self.eng
-        tokens, positions, offsets, last_idx = self._unified_pack(segs)
-        shards, covered = self._unified_shards(segs, len(tokens))
-        limits = np.array([s.limit for s in segs], np.int64)
-        assert (covered == limits).all(), (covered, limits)
-        self._unified_count(segs)
-        pos_dev = self._to_dev(positions)
+        with obs.span("executor.plan"):
+            tokens, positions, offsets, last_idx = self._unified_pack(segs)
+            shards, covered = self._unified_shards(segs, len(tokens))
+            limits = np.array([s.limit for s in segs], np.int64)
+            assert (covered == limits).all(), (covered, limits)
+            self._unified_count(segs)
+            pos_dev = self._to_dev(positions)
+            offsets, tokens, last_idx = (self._to_dev(x) for x in
+                                         (offsets, tokens, last_idx))
         impl = self._unified_impl
         prev_impl = eng.model.attn_impl
         eng.model.attn_impl = impl
-        impl.begin_step(self._to_dev(offsets), pos_dev, shards=shards)
-        try:
-            logits, (k_packed, v_packed) = eng.model.prefill_packed(
-                eng.params, {"tokens": self._to_dev(tokens)[None]}, pos_dev,
-                self._to_dev(last_idx),
-            )
-        finally:
-            impl.end_step()
-            eng.model.attn_impl = prev_impl
-        self._unified_emit(work, segs, self._agree(logits).cpu().numpy(),
-                           None, k_packed, v_packed, None)
+        with obs.span("executor.launch"):
+            impl.begin_step(offsets, pos_dev, shards=shards)
+            try:
+                logits, (k_packed, v_packed) = eng.model.prefill_packed(
+                    eng.params, {"tokens": tokens[None]}, pos_dev, last_idx,
+                )
+            finally:
+                impl.end_step()
+                eng.model.attn_impl = prev_impl
+        self._unified_emit(work, segs, self._agree(logits), None, k_packed,
+                           v_packed, None)
 
     def _unified_emit(self, work, segs, logits, ids, k_packed, v_packed,
                       colmap) -> None:
         """Unified epilogue.  Host-sampling path: ``logits`` [>=S, V] rows
         pass the NaN guard, then greedy sampling (``ids`` None); SPMD path:
         ``ids`` [>=S] were sampled in the step (logits never leave it, so no
-        value guard, as in the reference).  ``colmap`` maps a packed column
-        to its row on the KV output's token axis (striped order under SPMD;
-        None = identity).  Prefill chunk KV scatters write-through at the
-        chunk's reserved placement slots; decode KV is stashed on the host
-        for `_on_unified_done` to fill once the slot is allocated."""
+        value guard, as in the reference); both are device tensors.
+        ``colmap`` maps a packed column to its row on the KV output's token
+        axis (striped order under SPMD; None = identity).  Decode rows' new
+        KV comes to the host with the logits and is stashed for
+        `_on_unified_done` to fill once the slot is allocated; prefill chunk
+        KV scatters write-through at the chunk's reserved placement slots."""
         eng = self.eng
         starts = np.concatenate([[0], np.cumsum([s.ln for s in segs])])
         col_of = (lambda c: c) if colmap is None else (lambda c: colmap[c])
+        store = eng.pool.pools[0].store_values
+        dec = [b for b, s in enumerate(segs) if s.decode] if store else []
+        kd = vd = None
+        if dec:
+            dc = self._to_dev(np.asarray([int(col_of(starts[b])) for b in dec],
+                                         np.int64))
+            kd = k_packed.index_select(1, dc).float()
+            vd = v_packed.index_select(1, dc).float()
+        logits, ids, kd, vd = self._to_host(logits, ids, kd, vd)
         emitted = set()
-        for b, s in enumerate(segs):
-            if not s.final:
-                continue
-            if ids is None:
-                row = self._guard_logits(s.r, logits[b])
-                if row is None:
-                    continue  # quarantined: no token, engine requeues
-                s.r.output_tokens.append(eng._sample_token(row))
-            else:
-                s.r.output_tokens.append(int(ids[b]))
-            emitted.add(s.r.rid)
-        if not eng.pool.pools[0].store_values:
+        with obs.span("executor.sample") as sp:
+            for b, s in enumerate(segs):
+                if not s.final:
+                    continue
+                if ids is None:
+                    row = self._guard_logits(s.r, logits[b])
+                    if row is None:
+                        continue  # quarantined: no token, engine requeues
+                    s.r.output_tokens.append(eng._sample_token(row))
+                else:
+                    s.r.output_tokens.append(int(ids[b]))
+                emitted.add(s.r.rid)
+            for j, b in enumerate(dec):
+                r = segs[b].r
+                if r.rid in emitted:  # quarantined rows stash no KV
+                    eng._pending_kv[r.rid] = (kd[:, j:j + 1], vd[:, j:j + 1])
+            sp.value = len(emitted)
+        if not store:
             return
         per_inst: Dict[int, Tuple[List[np.ndarray], List[np.ndarray]]] = {}
-        dec_cols: List[int] = []
-        dec_reqs: List[Any] = []
         for b, s in enumerate(segs):
             if s.decode:
-                if s.r.rid in emitted:  # quarantined rows stash no KV
-                    dec_cols.append(int(col_of(starts[b])))
-                    dec_reqs.append(s.r)
                 continue
             lo, hi = s.start, s.start + s.ln
             for inst, pos_list in work.batch.placement.get(s.r.rid, {}).items():
@@ -620,12 +680,6 @@ class LocalExecutor:
                 cols.append(np.asarray(col_of(starts[b] + (p - lo)), np.int64))
                 slots.append(eng.pool.pools[inst].slots_for(s.r.rid, p))
         self._fill_columns(per_inst, k_packed, v_packed)
-        if dec_cols:
-            dc = self._to_dev(np.asarray(dec_cols, np.int64))
-            kd = k_packed.index_select(1, dc).float().cpu().numpy()
-            vd = v_packed.index_select(1, dc).float().cpu().numpy()
-            for j, r in enumerate(dec_reqs):
-                eng._pending_kv[r.rid] = (kd[:, j:j + 1], vd[:, j:j + 1])
 
 
 class _SpmdCall(NamedTuple):
@@ -833,7 +887,8 @@ class MeshExecutor(LocalExecutor):
         sub = self._group_mesh(alive) if len(alive) > 1 else None
         if sub is None:
             return super().prefill_packed(batch)
-        lens, packed = self._pack_prefill(batch)
+        with obs.span("executor.plan"):
+            lens, packed = self._pack_prefill(batch)
         logits = k_packed = v_packed = None
         if sub.rank is not None:
             self._step_mesh = sub
@@ -848,8 +903,8 @@ class MeshExecutor(LocalExecutor):
         )])
         if len(sub.ranks) == self._world:
             logits = self._agree(logits)
-        self._emit_prefill(batch, lens, logits.cpu().numpy(), k_packed,
-                           v_packed)
+        (logits,) = self._to_host(logits)
+        self._emit_prefill(batch, lens, logits, k_packed, v_packed)
 
     def _arm_packed_step(self, impl, offsets, dop: int) -> None:
         impl.begin_step(offsets, dop=dop, mesh=self._step_mesh,
@@ -958,7 +1013,8 @@ class MeshExecutor(LocalExecutor):
         """One SPMD decode step for the whole group: per layer, each rank's
         K2 partial over the mirror it holds and the LSE merge as a
         collective; otherwise the per-shard loop (`LocalExecutor`)."""
-        setup = self._decode_spmd_setup(g) if self.spmd_decode else None
+        with obs.span("executor.plan"):
+            setup = self._decode_spmd_setup(g) if self.spmd_decode else None
         if setup is None:
             return super().decode_paged(g)
         fn, args, (rowmap, bb, rows), mesh = setup
@@ -968,7 +1024,8 @@ class MeshExecutor(LocalExecutor):
             prev_impl = eng.model.attn_impl
             eng.model.attn_impl = self._paged_impl
             try:
-                out = fn(*args)
+                with obs.span("executor.launch"):
+                    out = fn(*args)
             finally:
                 eng.model.attn_impl = prev_impl
         cfg = eng.cfg
@@ -1003,13 +1060,12 @@ class MeshExecutor(LocalExecutor):
         _on_decode_done to fill.  As in the reference, the NaN-logit guard
         cannot apply here (logits never leave the step)."""
         eng = self.eng
-        toks = toks_next.cpu().numpy()
-        k_rt = k_rt.float().cpu().numpy()
-        v_rt = v_rt.float().cpu().numpy()
-        for b, r in enumerate(g.requests):
-            r.output_tokens.append(int(toks[b]))
-            row = rowmap[r.rid]
-            eng._pending_kv[r.rid] = (k_rt[:, row], v_rt[:, row])
+        toks, k_rt, v_rt = self._to_host(toks_next, k_rt.float(), v_rt.float())
+        with obs.span("executor.sample", len(g.requests)):
+            for b, r in enumerate(g.requests):
+                r.output_tokens.append(int(toks[b]))
+                row = rowmap[r.rid]
+                eng._pending_kv[r.rid] = (k_rt[:, row], v_rt[:, row])
 
     # --------------------------------------------------------------- unified
     def _unified_spmd_setup(self, work, segs):
@@ -1070,7 +1126,7 @@ class MeshExecutor(LocalExecutor):
                 pd if eng.cfg.sliding_window else None)
         return _SpmdCall(fn, args, aux, mesh)
 
-    def unified(self, work) -> None:
+    def _unified_run(self, work, segs) -> None:
         """The whole unified iteration striped over the group's sub-mesh
         (`core.esp.unified_iteration_spmd`): per layer, the decode-style
         paged prefix merge and the prefill-style chunk ring; tokens sampled
@@ -1079,12 +1135,13 @@ class MeshExecutor(LocalExecutor):
         form (`LocalExecutor`)."""
         from repro_torch.kernels import ops
 
-        segs = self._unified_segments(work)
-        setup = (
-            self._unified_spmd_setup(work, segs) if self.spmd_decode else None
-        )
+        with obs.span("executor.plan"):
+            setup = (
+                self._unified_spmd_setup(work, segs) if self.spmd_decode
+                else None
+            )
         if setup is None:
-            return self._unified_local(work, segs)
+            return super()._unified_run(work, segs)
         fn, args, (inv, tb, bb), mesh = setup
         self._unified_count(segs)
         eng = self.eng
@@ -1093,7 +1150,8 @@ class MeshExecutor(LocalExecutor):
             prev_impl = eng.model.attn_impl
             eng.model.attn_impl = self._unified_impl
             try:
-                ids, k_st, v_st = fn(*args)
+                with obs.span("executor.launch"):
+                    ids, k_st, v_st = fn(*args)
             finally:
                 eng.model.attn_impl = prev_impl
             k_packed, v_packed = ops.all_gather((k_st, v_st), mesh.group,
@@ -1106,5 +1164,4 @@ class MeshExecutor(LocalExecutor):
             (k_packed, kv_shape, eng.model.dtype),
             (v_packed, kv_shape, eng.model.dtype),
         ])
-        self._unified_emit(work, segs, None, ids.cpu().numpy(), k_packed,
-                           v_packed, inv)
+        self._unified_emit(work, segs, None, ids, k_packed, v_packed, inv)

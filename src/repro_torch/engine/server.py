@@ -34,6 +34,7 @@ from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.engine.request import Phase, Request
 from repro_torch.kvcache.distributed import DistributedKVPool
@@ -54,7 +55,6 @@ class EngineMetrics:
     rejected: int = 0
     scaling_migration_bytes: int = 0  # ESP transitions: MUST stay 0
     reactive_migration_bytes: int = 0
-    q_broadcast_bytes: int = 0
     prefill_iters: int = 0
     decode_iters: int = 0
     # degradation-path counters (observability for planner/pool divergence
@@ -259,9 +259,10 @@ class BaseServingEngine:
                 heapq.heappush(self.events, (t, seq, kind, payload))
                 break
             self.clock = max(self.clock, t)
-            self._handle(kind, payload)
-            for hook in list(self.event_hooks):
-                hook(self, kind, payload)
+            with obs.span("engine.step"):
+                self._handle(kind, payload)
+                for hook in list(self.event_hooks):
+                    hook(self, kind, payload)
             n_ev += 1
         return self.metrics
 
@@ -290,7 +291,8 @@ class BaseServingEngine:
             # scheduling pass (one prefill batch / one decode group) instead
             # of planning after each arrival with a partial view
             return
-        self._try_schedule()
+        with obs.span("engine.schedule", len(self.pending)):
+            self._try_schedule()
 
     # hooks ------------------------------------------------------------
     def _try_schedule(self) -> None:  # pragma: no cover - abstract
@@ -576,23 +578,31 @@ class LoongServeEngine(BaseServingEngine):
         return free < self.admission_watermark * total
 
     def _try_schedule(self) -> None:
-        for _ in range(4):  # drain: admit more work onto leftover instances
+        obs.mark("engine.admitted", self._schedule_rounds())
+
+    def _schedule_rounds(self) -> int:
+        """Plan and launch until nothing more fits; returns the requests
+        moved into prefill."""
+        admitted = 0
+        for rnd in range(4):  # drain: admit more work onto leftover instances
             idle = [
                 i
                 for i in self.idle_instances()
                 if not any(i in g.instances for g in self.ready_decode)
             ]
+            if rnd == 0 and not idle and self.pending:
+                obs.mark("engine.no_idle", len(self.pending))
             if not idle and not self.ready_decode:
-                return
+                return admitted
             if not self.pending and not self.ready_decode:
-                return
+                return admitted
             self.pending.sort(key=lambda r: r.arrival)
             pending_view = self.pending
             if pending_view and self._backpressured():
                 self.metrics.backpressure_deferrals += 1
                 pending_view = []
                 if not self.ready_decode:
-                    return
+                    return admitted
             plan = self.manager.schedule(
                 pending_view, self.ready_decode, idle, self.clock
             )
@@ -625,8 +635,10 @@ class LoongServeEngine(BaseServingEngine):
                     if retry.prefill:
                         plan = retry
             if not plan.prefill and not plan.decode and not plan.migrations:
-                return
+                return admitted
             self._execute_plan(plan)
+            admitted += sum(len(b.requests) for b in plan.prefill)
+        return admitted
 
     def _execute_plan(self, plan) -> None:
         # migrations (allocation-step KV moves — reactive, counted)
@@ -732,11 +744,6 @@ class LoongServeEngine(BaseServingEngine):
             self._occupy(g.instances, end)
             for r in g.requests:
                 r.decode_exec_time += dur
-            # q-broadcast volume (multi-master): q + partial returns
-            self.metrics.q_broadcast_bytes += (
-                2 * len(g.requests) * self.cfg.n_heads * self.cfg.head_dim
-                * 2 * max(g.dop - 1, 0)
-            )
             self.metrics.decode_iters += 1
             self._running_decode_ends[id(g)] = end
             # launch-time sequence stamp: decode_done uses it to tell "still
@@ -1157,10 +1164,12 @@ class LoongServeEngine(BaseServingEngine):
         ]
         return [i for i in order if i not in self.failed]
 
-    def _try_place_token(self, r: Request, g: DecodeBatch, pos: int) -> bool:
+    def _try_place_token(self, r: Request, g: DecodeBatch, pos: int,
+                         fills: Dict[int, list]) -> bool:
         """Append one decoded token's KV slot on the first instance in the
-        request's placement order with room; real mode also writes the
-        pending KV through."""
+        request's placement order with room; real mode also queues the
+        pending KV in `fills` (instance -> rows) for the epilogue to write
+        through."""
         for inst in self._placement_order(r, g):
             try:
                 self.pool.pools[inst].alloc(r.rid, [pos])
@@ -1168,7 +1177,7 @@ class LoongServeEngine(BaseServingEngine):
                 continue
             if self.real and r.rid in self._pending_kv:
                 k_new, v_new = self._pending_kv.pop(r.rid)
-                self.pool.pools[inst].fill(r.rid, [pos], k_new, v_new)
+                fills.setdefault(inst, []).append((r.rid, [pos], k_new, v_new))
             return True
         return False
 
@@ -1184,8 +1193,8 @@ class LoongServeEngine(BaseServingEngine):
             return None
         return min(cands, key=lambda q: (q.generated, -q.arrival, -q.rid))
 
-    def _preempt_and_place(self, r: Request, g: DecodeBatch,
-                           pos: int) -> bool:
+    def _preempt_and_place(self, r: Request, g: DecodeBatch, pos: int,
+                           fills: Dict[int, list]) -> bool:
         """Free pool space for `r`'s token append by evicting victims
         (lowest-progress first) and retrying placement.  Victims are never
         taken from the group currently being processed — their tokens for
@@ -1212,7 +1221,7 @@ class LoongServeEngine(BaseServingEngine):
                 ]
                 if not gg.requests:
                     self.ready_decode.remove(gg)
-            if self._try_place_token(r, g, pos):
+            if self._try_place_token(r, g, pos, fills):
                 return True
         return False
 
@@ -1269,53 +1278,58 @@ class LoongServeEngine(BaseServingEngine):
         Returns the surviving group for the caller to requeue — the plain
         decode path appends it to `ready_decode`; the unified chain carries
         it into its next fused iteration instead."""
-        survivors = self._drain_quarantine(g.requests)
-        if not survivors:
-            return None
-        if len(survivors) < len(g.requests):
-            g = DecodeBatch(survivors, g.instances, g.masters)
-        done, live = [], []
-        for r in g.requests:
-            # the processed token's position (its KV is appended now)
-            pos = r.seq_len - 1
-            r.generated += 1
-            if not self.real:
-                r.output_tokens.append(self._sample_token())
-            if r.done:
-                # the final token's KV is never attended — don't burn a slot
-                # (and never requeue a finished request on fleet-wide OOM)
-                self._pending_kv.pop(r.rid, None)
-                done.append(r)
-                continue
-            placed = self._try_place_token(r, g, pos)
-            if not placed:
-                # fleet-wide OOM: preempt the youngest/lowest-progress decode
-                # request(s) OUTSIDE this group and retry, so work already
-                # deep into generation is not the one thrown away
-                placed = self._preempt_and_place(r, g, pos)
-            if not placed:
-                # no preemptable victim either: self-evict & requeue
-                self.metrics.preemptions += 1
-                self._pending_kv.pop(r.rid, None)
-                self.pool.free_request(r.rid)
-                self._requeue_for_recompute(r)
-                self.pending.append(r)
-                continue
-            (done if r.done else live).append(r)
-        for r in done:
-            self._finish_request(r)
-            if r.norm_output_latency():
-                self.manager.note_finished_decode(r.norm_output_latency())
-            self._real_cache.pop(r.rid, None)
-        if not live:
-            return None
-        # always re-filter failed instances (an instance that died
-        # mid-flight holding none of this group's KV is not caught by
-        # the alive-filter above)
-        return DecodeBatch(
-            live, [i for i in g.instances if i not in self.failed],
-            g.masters,
-        )
+        with obs.span("engine.decode_epilogue", len(g.requests)):
+            survivors = self._drain_quarantine(g.requests)
+            if not survivors:
+                return None
+            if len(survivors) < len(g.requests):
+                g = DecodeBatch(survivors, g.instances, g.masters)
+            done, live = [], []
+            fills: Dict[int, list] = {}  # instance -> new KV rows to write
+            for r in g.requests:
+                # the processed token's position (its KV is appended now)
+                pos = r.seq_len - 1
+                r.generated += 1
+                if not self.real:
+                    r.output_tokens.append(self._sample_token())
+                if r.done:
+                    # the final token's KV is never attended — don't burn a
+                    # slot (and never requeue a finished request on
+                    # fleet-wide OOM)
+                    self._pending_kv.pop(r.rid, None)
+                    done.append(r)
+                    continue
+                placed = self._try_place_token(r, g, pos, fills)
+                if not placed:
+                    # fleet-wide OOM: preempt the youngest/lowest-progress
+                    # decode request(s) OUTSIDE this group and retry, so work
+                    # already deep into generation is not the one thrown away
+                    placed = self._preempt_and_place(r, g, pos, fills)
+                if not placed:
+                    # no preemptable victim either: self-evict & requeue
+                    self.metrics.preemptions += 1
+                    self._pending_kv.pop(r.rid, None)
+                    self.pool.free_request(r.rid)
+                    self._requeue_for_recompute(r)
+                    self.pending.append(r)
+                    continue
+                (done if r.done else live).append(r)
+            for inst, rows in fills.items():
+                self.pool.pools[inst].fill_rows(rows)
+            for r in done:
+                self._finish_request(r)
+                if r.norm_output_latency():
+                    self.manager.note_finished_decode(r.norm_output_latency())
+                self._real_cache.pop(r.rid, None)
+            if not live:
+                return None
+            # always re-filter failed instances (an instance that died
+            # mid-flight holding none of this group's KV is not caught by
+            # the alive-filter above)
+            return DecodeBatch(
+                live, [i for i in g.instances if i not in self.failed],
+                g.masters,
+            )
 
     # ----------------------------------------------------------- real compute
     # Thin dispatch only: the bodies live in engine/executor.py behind the
@@ -1341,12 +1355,6 @@ class LoongServeEngine(BaseServingEngine):
 
     def _real_unified(self, work: UnifiedWork) -> None:
         return self.executor.unified(work)
-
-    @property
-    def _prefill_programs(self):
-        """Compiled packed-prefill program cache (owned by the executor;
-        empty for sim-mode engines, which have no executor)."""
-        return self.executor._prefill_programs if self.executor else {}
 
     def _placement_lost(self, batch: PrefillBatch, r: Request) -> bool:
         """True when part of the request's reserved KV placement sits on a

@@ -14,6 +14,8 @@ flags, so a stale library is never loaded; it is loaded with `ctypes`
 so a build takes seconds.
 `build_all` compiles every source in parallel — one nvcc per source, all
 started together — and returns each compiler's ``-Xptxas -v`` report.
+The wait for each nvcc run and each library load is a span of
+`repro_torch.obs` (``kernels.build.<name>``, ``kernels.load.<name>``).
 Nothing here runs at import time: the CPU tests import every module.
 """
 from __future__ import annotations
@@ -26,6 +28,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, List
+
+from repro_torch import obs
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -138,7 +142,8 @@ def build_all() -> Dict[str, str]:
     started = {n: _start(n) for n in names}
     for n, s in started.items():
         if s is not None:
-            _finish(n, s)
+            with obs.span(f"kernels.build.{n}", 1):
+                _finish(n, s)
     for n in names:
         load_library(n)
     return {n: ptxas_reports.get(n, "(already built)") for n in names}
@@ -151,12 +156,15 @@ def load_library(name: str) -> ctypes.CDLL:
         return lib
     started = _start(name)
     if started is not None:
-        _finish(name, started)
-    lib = ctypes.CDLL(str(_lib_path(name)))
-    for fn, argtypes in _SIGNATURES[name].items():
-        f = getattr(lib, fn)
-        f.argtypes = argtypes
-        f.restype = ctypes.c_char_p if fn.endswith("error_string") else ctypes.c_int
+        with obs.span(f"kernels.build.{name}", 1):
+            _finish(name, started)
+    with obs.span(f"kernels.load.{name}", 1):
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        for fn, argtypes in _SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = (ctypes.c_char_p if fn.endswith("error_string")
+                         else ctypes.c_int)
     _LIBS[name] = lib
     return lib
 

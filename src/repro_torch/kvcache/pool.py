@@ -79,6 +79,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 
 
@@ -501,6 +502,14 @@ class KVPool:
         self.v[:, slots] = np.asarray(v, np.float32)
         self._mark_dirty(slots)
 
+    def fill_rows(self, rows) -> None:
+        """`fill` for each ``(request_id, positions, k, v)`` of `rows`: one
+        decode epilogue's new KV for this pool, or one serial prefill's.
+        One ``kv_pool.fill`` record for them all (value: slots written)."""
+        with obs.span("kv_pool.fill", sum(len(r[1]) for r in rows)):
+            for rid, positions, k, v in rows:
+                self.fill(rid, positions, k, v)
+
     # --------------------------------------------------------- device mirror
     def bind_device(self, device) -> None:
         """Pin this instance's compute-plane mirror to `device` (a
@@ -548,37 +557,44 @@ class KVPool:
                 f"KVPool {self.instance_id}: its mirror lives on rank "
                 f"{self._mesh_src}, not in this process"
             )
-        full, dirty = self.consume_dirty()
-        cur = self._mirror
-        if cur is not None and full and self._mesh_src is not None:
-            # a full resync on a mesh rank keeps the mirror-only (stale)
-            # slots in place and uploads the rest: a host sync here would be
-            # a collective the other ranks are not in
-            keep = np.nonzero(~self._stale_host)[0]
-            _mirror_scatter(
-                cur, self._dev_put(keep), self._dev_put(self.k[:, keep]),
-                self._dev_put(self.v[:, keep]),
-                self._dev_put(self.slot_pos[keep]),
-            )
-            self.mirror_uploaded_slots += len(keep)
-        elif cur is None or full:
-            # a full resync uploads the HOST copy wholesale: pull any
-            # stale-host slots (authoritative only in the mirror) down first
-            # or their KV would be overwritten with never-synced host data
-            self._sync_host()
-            cur = (self._dev_put(self.k), self._dev_put(self.v),
-                   self._dev_put(self.slot_pos))
-            self.mirror_full_syncs += 1
-            self.mirror_uploaded_slots += self.capacity
-        elif len(dirty):
-            _mirror_scatter(
-                cur, self._dev_put(dirty), self._dev_put(self.k[:, dirty]),
-                self._dev_put(self.v[:, dirty]),
-                self._dev_put(self.slot_pos[dirty]),
-            )
-            self.mirror_uploaded_slots += len(dirty)
+        with obs.span("kv_pool.mirror_sync") as sp:
+            full, dirty = self.consume_dirty()
+            cur = self._mirror
+            if cur is not None and full and self._mesh_src is not None:
+                # a full resync on a mesh rank keeps the mirror-only (stale)
+                # slots in place and uploads the rest: a host sync here
+                # would be a collective the other ranks are not in
+                keep = np.nonzero(~self._stale_host)[0]
+                up = self._upload_slots(cur, keep)
+                self.mirror_uploaded_slots += len(keep)
+            elif cur is None or full:
+                # a full resync uploads the HOST copy wholesale: pull any
+                # stale-host slots (authoritative only in the mirror) down
+                # first or their KV would be overwritten with never-synced
+                # host data
+                self._sync_host()
+                cur = (self._dev_put(self.k), self._dev_put(self.v),
+                       self._dev_put(self.slot_pos))
+                up = sum(t.nbytes for t in cur)
+                self.mirror_full_syncs += 1
+                self.mirror_uploaded_slots += self.capacity
+            elif len(dirty):
+                up = self._upload_slots(cur, dirty)
+                self.mirror_uploaded_slots += len(dirty)
+            else:
+                up = 0
+            sp.value = up
         self._mirror = cur
         return cur
+
+    def _upload_slots(self, mirror, slots: np.ndarray) -> int:
+        """Upload the host copy's `slots` into `mirror`; returns the bytes
+        uploaded."""
+        parts = (self._dev_put(slots), self._dev_put(self.k[:, slots]),
+                 self._dev_put(self.v[:, slots]),
+                 self._dev_put(self.slot_pos[slots]))
+        _mirror_scatter(mirror, *parts)
+        return sum(t.nbytes for t in parts)
 
     def device_paged_kv(self):
         """Page-shaped view of the device mirror — the per-instance launch
@@ -623,15 +639,16 @@ class KVPool:
             # another process holds the mirror and scatters these slots
             self._mark_stale_host(slots)
             return
-        kd, vd, pd = self.device_kv()  # sync any stale dirty slots first
-        # the packed step's output is cast to the mirror's type (f32) on the
-        # mirror's device before the in-place scatter
-        kn = k_dev.to(device=kd.device, dtype=kd.dtype)
-        vn = v_dev.to(device=vd.device, dtype=vd.dtype)
-        _mirror_scatter(
-            self._mirror, self._dev_put(slots), kn, vn,
-            self._dev_put(self.slot_pos[slots]),
-        )
+        with obs.span("kv_pool.fill_packed", len(slots)):
+            kd, vd, pd = self.device_kv()  # sync any stale dirty slots first
+            # the packed step's output is cast to the mirror's type (f32) on
+            # the mirror's device before the in-place scatter
+            kn = k_dev.to(device=kd.device, dtype=kd.dtype)
+            vn = v_dev.to(device=vd.device, dtype=vd.dtype)
+            _mirror_scatter(
+                self._mirror, self._dev_put(slots), kn, vn,
+                self._dev_put(self.slot_pos[slots]),
+            )
         # lazy host copy: defer the device->host download to the first
         # management-plane read (migration / gather / SWA / checkpoint)
         self._mark_stale_host(slots)

@@ -14,6 +14,11 @@ pools, on the card by default).
 nothing falls back to the CPU: without CUDA ``--real`` raises, and
 ``--device cpu`` must be asked for).  Sim mode holds no tensors and runs
 anywhere, as the reference's does.
+
+After the engine's summary the run prints the totals of its records
+(`repro_torch.obs.snapshot()`: per span or mark, count, seconds,
+exclusive seconds and the sum of values; the key ``"obs"`` under
+``--json``).
 """
 from __future__ import annotations
 
@@ -71,6 +76,7 @@ def main(argv=None) -> int:
     ap.add_argument("--json", action="store_true")
     args = ap.parse_args(argv)
 
+    from repro_torch import obs
     from repro_torch.configs import get_config, reduced
     from repro_torch.data import poisson_workload, with_prompts
 
@@ -105,8 +111,9 @@ def main(argv=None) -> int:
         eng.submit(r)
     metrics = eng.run()
     summary = metrics.summary()
+    records = obs.snapshot()
     if args.json:
-        print(json.dumps(summary, indent=1))
+        print(json.dumps(dict(summary, obs=records), indent=1))
     else:
         print(f"=== {args.system} on {args.dataset} (rate {args.rate}) ===")
         for k, v in summary.items():
@@ -114,6 +121,10 @@ def main(argv=None) -> int:
         if args.real and metrics.finished:
             r0 = metrics.finished[0]
             print(f"  sample output tokens: {r0.output_tokens[:8]}")
+        print("  records (count, seconds, exclusive s, sum of values):")
+        for k, t in records.items():
+            print(f"  {k:34s} {t['count']:7d} {t['seconds']:10.6f} "
+                  f"{t['exclusive_s']:10.6f} {t['value']:g}")
     return 0
 
 

@@ -24,6 +24,7 @@ import math
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.engine.request import Phase, Request
 from repro_torch.kvcache.distributed import DistributedKVPool
@@ -93,7 +94,6 @@ class IterationPlan:
     decode: List[DecodeBatch] = field(default_factory=list)
     migrations: List[Migration] = field(default_factory=list)
     preempted: List[Request] = field(default_factory=list)
-    log: List[str] = field(default_factory=list)
 
 
 @dataclass
@@ -143,7 +143,7 @@ class GlobalManager:
 
         # ---- step 1: dispatching --------------------------------------
         rp, preempt_groups = self._dispatch(
-            pending, decode_groups, idle_instances, now, group_busy_until, plan
+            pending, decode_groups, idle_instances, now, group_busy_until
         )
 
         # ---- step 2: elastic instance allocation ----------------------
@@ -154,10 +154,10 @@ class GlobalManager:
             ep_free = sum(self.pool.pools[i].free_slots for i in ep)
             while rp and sum(r.input_len for r in rp) > ep_free:
                 dropped = rp.pop()
-                plan.log.append(f"trim r{dropped.rid}: E_p capacity")
+                obs.mark("scheduler.trim", dropped.input_len)
 
         # ---- step 3: batching (DP) ------------------------------------
-        batches = self._batch(rp, ep, plan)
+        batches = self._batch(rp, ep)
 
         # ---- step 4: elastic scaling plan generation -------------------
         pending_left = any(r not in rp for r in pending)
@@ -190,7 +190,7 @@ class GlobalManager:
         return need_now + reserve + future_reserve <= free_now
 
     def _dispatch(
-        self, pending, decode_groups, idle_instances, now, busy, plan
+        self, pending, decode_groups, idle_instances, now, busy
     ) -> Tuple[List[Request], List[DecodeBatch]]:
         mcfg = self.mcfg
         rp: List[Request] = []
@@ -205,18 +205,22 @@ class GlobalManager:
         tipping = self.sib.prefill_tipping_point(idle_dop)
 
         skipped_head = False
+        stop = None  # why admission stopped short of the queue's end
         for req in list(pending):
             if len(rp) >= mcfg.max_prefill_batch:
+                stop = "batch_cap"
                 break
             lens = [r.input_len for r in rp] + [req.input_len]
             # compute tipping point (§5.1): stop once the batch saturates
             if rp and self.sib.prefill_time(idle_dop, lens) > tipping:
+                stop = "tipping"
                 break
             if not self._memory_admissible(req, free_now, active_future):
                 # Appendix A: bounded out-of-order execution
                 if mcfg.enable_ooe and self._ooe_counter < mcfg.max_num_ooe:
                     skipped_head = True
                     continue
+                stop = "memory"
                 break
             # Appendix A: delay execution — if waiting for busy instances to
             # free up beats running now on what's idle, postpone.
@@ -231,10 +235,15 @@ class GlobalManager:
                 t_all = self.sib.prefill_time(all_dop, [req.input_len])
                 wait = self._avg_lat_d()
                 if t_all + wait < t_now:
-                    plan.log.append(f"delay r{req.rid} for bigger group")
+                    obs.mark("scheduler.delay")
+                    stop = "delay"
                     break
             rp.append(req)
             free_now -= req.input_len
+        if stop is None and skipped_head:
+            stop = "memory"  # the requests left were skipped out of order
+        if stop is not None:
+            obs.mark(f"scheduler.stop.{stop}")
         self._ooe_counter = self._ooe_counter + 1 if skipped_head else 0
 
         # gain/cost preemption analysis (Eq. 1-2): consider extending R_p with
@@ -274,9 +283,7 @@ class GlobalManager:
                     rp.extend(extra)
                     remaining = [r for r in remaining if r not in extra]
                     preempt_groups.append(g)
-                    plan.log.append(
-                        f"preempt group {g.instances} (gain {gain:.3g} > cost {cost:.3g})"
-                    )
+                    obs.mark("scheduler.preempt_group", len(extra))
         return rp, preempt_groups
 
     # ========================================================== step 2
@@ -327,7 +334,7 @@ class GlobalManager:
                 toks = len(self.pool.pools[inst].tokens_of(rid))
                 plan.migrations.append(Migration(rid, inst, list(others), toks))
             ep.append(inst)
-            plan.log.append(f"annex instance {inst} for prefill (KV migrated)")
+            obs.mark("scheduler.annex")
 
         # marginal-gain expansion (Eq. 3-4): add e_min while Gain > Cost
         lens = [r.input_len for r in rp]
@@ -358,13 +365,11 @@ class GlobalManager:
                 toks = len(self.pool.pools[e_min].tokens_of(rid))
                 plan.migrations.append(Migration(rid, e_min, list(others), toks))
             ep.append(e_min)
-            plan.log.append(
-                f"annex e_min {e_min} (gain {gain:.3g} > cost {cost:.3g})"
-            )
+            obs.mark("scheduler.annex_e_min")
         return ep
 
     # ========================================================== step 3
-    def _batch(self, rp, ep, plan) -> List[PrefillBatch]:
+    def _batch(self, rp, ep) -> List[PrefillBatch]:
         if not rp or not ep:
             return []
         reqs = sorted(rp, key=lambda r: -r.input_len)
@@ -373,10 +378,10 @@ class GlobalManager:
         caps = [self.pool.pools[i].free_slots for i in insts]
         speeds = [self.sib.instance_speed.get(i, 1.0) for i in insts]
         cost = make_prefill_cost(self.sib, lens, speeds)
-        total, splits = dp_batching(lens, caps, cost)
+        _, splits = dp_batching(lens, caps, cost)
         if not splits:
             # fall back: one batch on all instances (capacity permitting)
-            plan.log.append("DP infeasible; fallback single batch")
+            obs.mark("scheduler.dp_fallback")
             return [PrefillBatch(reqs, insts, scale_down_to=[])]
         batches = []
         for s in splits:
@@ -387,15 +392,12 @@ class GlobalManager:
                     scale_down_to=[],
                 )
             )
-        plan.log.append(
-            f"DP batching: {[(len(b.requests), b.dop) for b in batches]} "
-            f"cost {total:.4g}"
-        )
+        obs.mark("scheduler.dp_batches", len(batches))
         return batches
 
     # ========================================================== step 4
     def _merge_decode_groups(
-        self, groups: List[DecodeBatch], under_load: bool, plan
+        self, groups: List[DecodeBatch], under_load: bool
     ) -> List[DecodeBatch]:
         """Consolidate decode batches when it frees instance-time (shared
         weight read). Multi-master + token-granularity KV make the merge
@@ -428,9 +430,7 @@ class GlobalManager:
                     m.requests = m.requests + g.requests
                     m.instances = union
                     placed = True
-                    plan.log.append(
-                        f"merge decode groups -> {len(m.requests)} reqs on {union}"
-                    )
+                    obs.mark("scheduler.merge_decode", len(m.requests))
                     break
             if not placed:
                 merged.append(DecodeBatch(list(g.requests), list(g.instances), dict(g.masters)))
@@ -466,7 +466,7 @@ class GlobalManager:
                         r.rid, list(range(r.input_len)), b.scale_down_to
                     )
                 except Exception:  # capacity race: leave it pending
-                    plan.log.append(f"defer r{r.rid}: no placement")
+                    obs.mark("scheduler.defer_no_placement")
                     continue
                 b.placement[r.rid] = pl.assignment
                 self.pool.place(pl)  # reserve slots now (zero-copy at exec)
@@ -481,7 +481,7 @@ class GlobalManager:
             or self.sib.decode_compute_bound_batch(1)
         )
         free_idle = [i for i in idle_instances if i not in ep]
-        decode_groups = self._merge_decode_groups(decode_groups, under_load, plan)
+        decode_groups = self._merge_decode_groups(decode_groups, under_load)
         for g in decode_groups:
             new_insts = list(g.instances)
             g_free = sum(self.pool.pools[i].free_slots for i in new_insts)
@@ -495,7 +495,7 @@ class GlobalManager:
                 g_free += self.pool.pools[add].free_slots
                 mem_pressure = g_free < growth * 4
                 compute_bound = len(g.requests) > thresh * len(new_insts)
-                plan.log.append(f"scale up decode group -> {new_insts}")
+                obs.mark("scheduler.scale_up", len(new_insts))
             # opportunistic scale-up under light load (§5: "as long as
             # scaling-up is beneficial ... use more idle GPUs"): multi-master
             # scale-up is migration-free, so the only cost is the per-DoP
@@ -506,7 +506,8 @@ class GlobalManager:
                 t_up = self.sib.decode_time(d + 1, len(g.requests), sum_kv)
                 if t_up < t_now * 0.98:
                     new_insts.append(free_idle.pop(0))
-                    plan.log.append(f"opportunistic decode scale-up -> {len(new_insts)}")
+                    obs.mark("scheduler.scale_up_opportunistic",
+                             len(new_insts))
                 else:
                     break
             if not new_insts and free_idle:  # stalled group revival
