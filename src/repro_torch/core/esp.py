@@ -272,8 +272,8 @@ def paged_decode_iteration_spmd(mesh, model, impl, params, toks,
     exchanges are collectives:
 
       * sampling: each rank argmaxes its OWN logits slice
-        (`model.decode_sampled`, equal to the engine's host
-        `_sample_token`) and the ids are all-gathered, so every rank sees
+        (`model.decode_sampled`, equal to the local executor's
+        `greedy_ids`) and the ids are all-gathered, so every rank sees
         the full next-token vector;
       * per-master KV routing: the step's new per-layer KV rows are
         all-gathered over the batch axis and the rows of the requests each
@@ -328,8 +328,8 @@ def unified_iteration_spmd(mesh, model, impl, params, toks, positions,
 
     Epilogue: the final hidden stripes are all-gathered, each segment's
     sampling row is unembedded and greedily argmaxed (equal to the
-    engine's host `_sample_token`).  As in the reference, logits never
-    leave the step, so there is no host NaN guard on this path.
+    local executor's `greedy_ids`).  As in the reference, there is no
+    value guard on this path.
 
     toks [T] and positions [T] in STRIPED order (T % n == 0; rank r's stripe
     is block r), seq_offsets [S+1] the GLOBAL packed offsets (numpy),

@@ -37,8 +37,12 @@ Each entry (``prefill``, ``decode``, ``unified``) is a span of
 ``executor.plan`` (tables, shards, packing, uploads), ``executor.launch``
 (the model call, until it returns on the host), ``executor.wait`` (the
 stream drained), ``executor.d2h`` (the copies to the host) and
-``executor.sample`` (the value guard, sampling and the KV stash).  The
-serial paths make one set per request, as they make one model call each.
+``executor.sample`` (tokens from the sampled ids, the quarantine and the
+KV stash).  The serial paths make one set per request, as they make one
+model call each.
+
+Greedy sampling and the value guard run on the device (`greedy_ids`): of
+a step's ``[B, V]`` logits only one int32 per row comes to the host.
 
 PyTorch runs eagerly, so the reference's jitted-program LRU has no
 counterpart; the padding buckets stay so that padded shapes and striping
@@ -63,6 +67,14 @@ class _USeg(NamedTuple):
     ln: int  # token count this iteration
     limit: int  # filled-prefix length: positions < limit are in the pool
     final: bool  # sample a token from this segment's last row
+
+
+def greedy_ids(logits: torch.Tensor) -> torch.Tensor:
+    """Greedy sampling and the value guard of logits rows ``[B, V]``, on
+    their device: int32 ``[B]``, each row's first maximal index (as
+    `np.argmax`), or -1 where the row is not all finite."""
+    ids = torch.argmax(logits, dim=-1).to(torch.int32)
+    return torch.where(torch.isfinite(logits).all(dim=-1), ids, -1)
 
 
 def _token_span(r, start: int, ln: int) -> np.ndarray:
@@ -109,20 +121,34 @@ class LocalExecutor:
         """Failure notification from the engine; the executor holds no
         per-instance state."""
 
-    # ------------------------------------------------------------ NaN guard
-    def _guard_logits(self, r, row):
-        """Value guard on one request's logits row (numpy): a NaN/inf row
-        quarantines ONLY that request instead of finishing it with a garbage
-        argmax.  Chaos injection (`_logit_poison`) overwrites the row BEFORE
-        the finite check.  Returns the row, or None when quarantined."""
+    # ------------------------------------------------------------ sampling
+    def _sampled(self, logits) -> torch.Tensor:
+        """A step's tokens from its logits rows ``[B, V]``: `greedy_ids` on
+        the device.  An engine whose per-row sampler ``_sample_token`` is
+        replaced gets each row on the host instead, finite rows sampled
+        through it (-1 for the others)."""
+        from repro_torch.engine.server import BaseServingEngine
+
+        sample = self.eng._sample_token
+        if getattr(sample, "__func__", None) is BaseServingEngine._sample_token:
+            return greedy_ids(logits)
+        (rows,) = self._to_host(logits)
+        return torch.tensor([sample(x) if np.isfinite(x).all() else -1
+                             for x in rows], dtype=torch.int32)
+
+    def _guard(self, r, tok: int) -> bool:
+        """Value guard on one request's sampled id: a row that was not all
+        finite (id -1) quarantines ONLY that request instead of finishing
+        it with a garbage token.  Chaos injection (`_logit_poison`) counts
+        as such a row.  True when the request keeps its token."""
         eng = self.eng
         if r.rid in eng._logit_poison:
             eng._logit_poison.discard(r.rid)
-            row = np.full_like(row, np.nan)
-        if not np.isfinite(row).all():
+            tok = -1
+        if tok < 0:
             eng._quarantine.add(r.rid)
-            return None
-        return row
+            return False
+        return True
 
     # ------------------------------------------------------------- buckets
     @staticmethod
@@ -200,8 +226,8 @@ class LocalExecutor:
         with obs.span("executor.plan"):
             lens, packed = self._pack_prefill(batch)
         logits, k_packed, v_packed = self._prefill_step(*packed)
-        (logits,) = self._to_host(self._agree(logits))
-        self._emit_prefill(batch, lens, logits, k_packed, v_packed)
+        self._emit_prefill(batch, lens, self._agree(logits), k_packed,
+                           v_packed)
 
     def _pack_prefill(self, batch):
         """Host-side packing of a prefill batch: (prompt lengths, (dop,
@@ -255,13 +281,15 @@ class LocalExecutor:
         return logits, k_packed, v_packed
 
     def _agree(self, logits):
-        """Host-sampled logits as every process of the executor sees them
-        (one process here; the mesh executor broadcasts)."""
+        """The step's logits as every process of the executor sees them
+        before they are sampled (one process here; the mesh executor
+        broadcasts)."""
         return logits
 
     def _emit_prefill(self, batch, lens, logits, k_packed, v_packed) -> None:
-        """Prefill epilogue: first tokens from the packed logits (numpy
-        [>=B, V], NaN-guarded), then the direct-to-pool paged KV writes:
+        """Prefill epilogue: first tokens from the packed logits (device
+        [>=B, V], sampled and guarded there), then the direct-to-pool paged
+        KV writes:
         per instance, the packed columns it retains (placement from
         batch.placement — ESP scale-down stays zero-migration) written
         through into its mirror at the reserved block-table slots.  A pool
@@ -269,7 +297,8 @@ class LocalExecutor:
         (``k_packed`` may then be None)."""
         eng = self.eng
         reqs = batch.requests
-        self._sample_rows(reqs, logits)
+        (ids,) = self._to_host(self._sampled(logits))
+        self._sample_rows(reqs, ids)
         if not eng.pool.pools[0].store_values:
             return
         starts = np.concatenate([[0], np.cumsum(lens)])
@@ -316,8 +345,8 @@ class LocalExecutor:
             # [L, T, KVH, D]; the ssm family has no KV
             kv = ((cache.k[:, 0].float(), cache.v[:, 0].float())
                   if cache.k is not None else (None, None))
-            row, k, v = self._to_host(logits[0, -1], *kv)
-            if not self._sample_rows([r], row[None]):
+            ids, k, v = self._to_host(self._sampled(logits[:, -1]), *kv)
+            if not self._sample_rows([r], ids):
                 continue  # quarantined: no first token, engine requeues
             if k is not None:
                 for inst, positions in batch.placement[r.rid].items():
@@ -387,29 +416,30 @@ class LocalExecutor:
         )
 
     def _emit_decoded(self, g, logits, kvs) -> None:
-        """Shared batched-decode epilogue: sample one token per request and
-        stash the step's new per-layer KV on the host; _on_decode_done fills
-        it into the pool once the slot is allocated, and the next decode's
-        mirror sync uploads it (device -> host -> device, as the reference
-        does).  logits [B, V]; kvs (k, v) each [L, B, 1, KVH, D]."""
+        """Shared batched-decode epilogue: sample one token per request on
+        the device and stash the step's new per-layer KV on the host;
+        _on_decode_done fills it into the pool once the slot is allocated,
+        and the next decode's mirror sync uploads it (device -> host ->
+        device, as the reference does).  logits [B, V] (they stay on the
+        device); kvs (k, v) each [L, B, 1, KVH, D]."""
         kv = (kvs[0].float(), kvs[1].float()) if kvs is not None else (None, None)
-        logits, k_host, v_host = self._to_host(logits, *kv)
-        self._sample_rows(g.requests, logits, k_host, v_host)
+        ids, k_host, v_host = self._to_host(self._sampled(logits), *kv)
+        self._sample_rows(g.requests, ids, k_host, v_host)
 
-    def _sample_rows(self, reqs, logits, k_host=None, v_host=None) -> int:
-        """Greedy tokens from host logits rows [>=B, V], each NaN-guarded
-        (a quarantined request gets no token and no KV stash), with each
-        sampled request's new KV (``k_host`` / ``v_host`` [L, B, ...], decode
-        only) stashed for the engine to fill once its slot is allocated.
-        One ``executor.sample`` record; value: tokens emitted."""
+    def _sample_rows(self, reqs, ids, k_host=None, v_host=None) -> int:
+        """Tokens from host ids [>=B] (`greedy_ids`), each through the value
+        guard (a quarantined request gets no token and no KV stash), with
+        each sampled request's new KV (``k_host`` / ``v_host`` [L, B, ...],
+        decode only) stashed for the engine to fill once its slot is
+        allocated.  One ``executor.sample`` record; value: tokens
+        emitted."""
         eng = self.eng
         with obs.span("executor.sample") as sp:
             n = 0
             for b, r in enumerate(reqs):
-                row = self._guard_logits(r, logits[b])
-                if row is None:
+                if not self._guard(r, int(ids[b])):
                     continue  # quarantined: no token, engine requeues
-                r.output_tokens.append(eng._sample_token(row))
+                r.output_tokens.append(int(ids[b]))
                 n += 1
                 if k_host is not None:
                     eng._pending_kv[r.rid] = (k_host[:, b], v_host[:, b])
@@ -450,8 +480,8 @@ class LocalExecutor:
             # the slot is allocated
             kv = ((kvs[0].float(), kvs[1].float()) if kvs is not None
                   else (None, None))
-            row, k_new, v_new = self._to_host(logits[0], *kv)
-            if not self._sample_rows([r], row[None], k_new, v_new):
+            ids, k_new, v_new = self._to_host(self._sampled(logits), *kv)
+            if not self._sample_rows([r], ids, k_new, v_new):
                 continue  # quarantined: no token, no cache/KV update
             if new_cache.ssm is not None:
                 eng._real_cache[r.rid] = new_cache.ssm
@@ -623,13 +653,13 @@ class LocalExecutor:
 
     def _unified_emit(self, work, segs, logits, ids, k_packed, v_packed,
                       colmap) -> None:
-        """Unified epilogue.  Host-sampling path: ``logits`` [>=S, V] rows
-        pass the NaN guard, then greedy sampling (``ids`` None); SPMD path:
-        ``ids`` [>=S] were sampled in the step (logits never leave it, so no
-        value guard, as in the reference); both are device tensors.
+        """Unified epilogue.  Local path (``ids`` None): ``logits`` [>=S, V]
+        rows are sampled on the device and pass the value guard; SPMD path:
+        ``ids`` [>=S] were sampled in the step (no value guard, as in the
+        reference); both are device tensors.
         ``colmap`` maps a packed column to its row on the KV output's token
         axis (striped order under SPMD; None = identity).  Decode rows' new
-        KV comes to the host with the logits and is stashed for
+        KV comes to the host with the ids and is stashed for
         `_on_unified_done` to fill once the slot is allocated; prefill chunk
         KV scatters write-through at the chunk's reserved placement slots."""
         eng = self.eng
@@ -643,19 +673,18 @@ class LocalExecutor:
                                          np.int64))
             kd = k_packed.index_select(1, dc).float()
             vd = v_packed.index_select(1, dc).float()
-        logits, ids, kd, vd = self._to_host(logits, ids, kd, vd)
+        guarded = ids is None
+        if guarded:
+            ids = self._sampled(logits)
+        ids, kd, vd = self._to_host(ids, kd, vd)
         emitted = set()
         with obs.span("executor.sample") as sp:
             for b, s in enumerate(segs):
                 if not s.final:
                     continue
-                if ids is None:
-                    row = self._guard_logits(s.r, logits[b])
-                    if row is None:
-                        continue  # quarantined: no token, engine requeues
-                    s.r.output_tokens.append(eng._sample_token(row))
-                else:
-                    s.r.output_tokens.append(int(ids[b]))
+                if guarded and not self._guard(s.r, int(ids[b])):
+                    continue  # quarantined: no token, engine requeues
+                s.r.output_tokens.append(int(ids[b]))
                 emitted.add(s.r.rid)
             for j, b in enumerate(dec):
                 r = segs[b].r
@@ -704,7 +733,8 @@ class MeshExecutor(LocalExecutor):
     same batches; only the compute plane is sharded.  Whatever the control
     plane reads after a step comes out of a collective the same on every
     rank: the sampled ids (all-gathered in the batch-sharded decode and the
-    unified step), or the host-sampled logits broadcast from one rank.
+    unified step), or the logits broadcast from one rank and sampled alike
+    on every rank.
 
     Construction binds engine instance ``i`` to data coordinate
     ``i % data`` of a ("data", "model") mesh (`launch.mesh`): only the
@@ -830,8 +860,8 @@ class MeshExecutor(LocalExecutor):
 
     # ------------------------------------------------------------- helpers
     def _agree(self, logits):
-        """Host-sampled logits from the paths every rank runs: broadcast
-        from rank 0, so every rank samples the same tokens."""
+        """The logits of the paths every rank runs, broadcast from rank 0,
+        so every rank samples the same tokens."""
         if self._world == 1:
             return logits
         from repro_torch.kernels import ops
@@ -903,7 +933,6 @@ class MeshExecutor(LocalExecutor):
         )])
         if len(sub.ranks) == self._world:
             logits = self._agree(logits)
-        (logits,) = self._to_host(logits)
         self._emit_prefill(batch, lens, logits, k_packed, v_packed)
 
     def _arm_packed_step(self, impl, offsets, dop: int) -> None:

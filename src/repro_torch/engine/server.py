@@ -326,6 +326,9 @@ class BaseServingEngine:
         self.metrics.finished.append(req)
 
     def _sample_token(self, logits=None) -> int:
+        """One row's token: greedy over a host logits row, or a random draw
+        without one (sim mode).  Real-mode executors sample on the device
+        (`executor.greedy_ids`) unless this is replaced."""
         if logits is None:
             return int(self.rng.integers(0, self.cfg.vocab_size))
         return int(np.argmax(logits))

@@ -490,9 +490,9 @@ class Model(nn.Module):
         """One decode step + greedy sampling for whatever batch slice the
         caller holds: inside the batch-sharded SPMD iteration each rank runs
         it on its own B/n slice.  `torch.argmax` returns the first maximal
-        index, as the engine's host `_sample_token` (`np.argmax`) does, so
-        ties break the same way.  Returns (sampled ids [b] int32, updated
-        cache, per-layer new KV)."""
+        index, as the local executor's `greedy_ids` and the reference's
+        host `np.argmax` do, so ties break the same way.  Returns (sampled
+        ids [b] int32, updated cache, per-layer new KV)."""
         logits, new_cache, kvs = self.decode(params, tokens, cache)
         return torch.argmax(logits, dim=-1).to(torch.int32), new_cache, kvs
 

@@ -180,3 +180,72 @@ def test_real_chaos_soak_oracle_parity(models, chunk):
         prompt0, mnt0 = orig[r.rid]
         want = jref.serial_decode_oracle(jmodel, jparams, prompt0, mnt0 - 1)
         assert list(r.output_tokens) == list(want), r.rid
+
+
+@pytest.mark.parametrize("phase", ["prefill", "decode"])
+def test_quarantine_takes_only_the_two_bad_rows(models, monkeypatch, phase):
+    """In one batch of clean rows (the packed prefill, or the paged
+    decode), a poisoned request and one whose logits row the unembedding
+    makes NaN: the device's flags quarantine and requeue exactly those two,
+    the clean rows keep their tokens, and after the recompute every
+    request's tokens equal the JAX oracle."""
+    cfg, jmodel, jparams, model, params = models
+    # one instance, and a modelled memory slow enough that the tiny model's
+    # prefill tipping point admits the whole burst as one packed batch
+    eng = LoongServeEngine(cfg, 1, 900, store_values=True, model=model,
+                           params=params, device="cpu",
+                           hw=HardwareSpec(hbm_bw=3.35e6))
+    rng = np.random.default_rng(5)
+    reqs, orig = [], {}
+    for _ in range(6):
+        ilen = int(rng.integers(16, 33))
+        prompt = rng.integers(0, cfg.vocab_size, ilen).tolist()
+        r = Request(input_len=ilen, max_new_tokens=5, prompt=list(prompt))
+        reqs.append(r)
+        orig[r.rid] = list(prompt)
+        eng.submit(r, at=0.0)
+    nan_row = []  # the row the next unembedding turns NaN
+
+    def unembed(p, x, _orig=model.unembed):
+        out = _orig(p, x)
+        if nan_row:
+            out = out.clone()
+            out.view(-1, out.shape[-1])[nan_row.pop()] = float("nan")
+        return out
+    monkeypatch.setattr(model, "unembed", unembed)
+    ex = eng.executor
+    entry = getattr(ex, phase)
+    seen = {}
+
+    def once(batch):
+        rows = batch.requests
+        if seen or len(rows) < 4:
+            return entry(batch)
+        poisoned, bad = rows[1], rows[2]
+        seen.update(poisoned=poisoned.rid, bad=bad.rid)
+        before = {r.rid: len(r.output_tokens) for r in rows}
+        eng._logit_poison.add(poisoned.rid)
+        nan_row.append(2)
+        entry(batch)
+        assert eng._quarantine == {poisoned.rid, bad.rid}
+        for r in rows:
+            grew = len(r.output_tokens) - before[r.rid]
+            assert grew == (0 if r.rid in eng._quarantine else 1), r.rid
+    monkeypatch.setattr(ex, phase, once)
+    requeued = []
+    requeue = eng._requeue_for_recompute
+
+    def spy(req, *a, **k):
+        requeued.append(req.rid)
+        return requeue(req, *a, **k)
+    monkeypatch.setattr(eng, "_requeue_for_recompute", spy)
+    ops.reset_dispatch_counts()
+    eng.run()
+    assert seen and not nan_row and not eng._logit_poison
+    assert sorted(requeued) == sorted(seen.values())
+    assert eng.metrics.nan_quarantined == 2
+    assert ops.dispatch_counts.get("prefill_serial_model", 0) == 0
+    assert all(r.phase is Phase.FINISHED for r in reqs)
+    for r in reqs:
+        want = jref.serial_decode_oracle(jmodel, jparams, orig[r.rid], 4)
+        assert list(r.output_tokens) == list(want), r.rid

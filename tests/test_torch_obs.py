@@ -1,7 +1,8 @@
 """The serving path's recorder (`repro_torch.obs`): the ring and its
 totals, the clock, and the records a real-mode engine run makes — named
 and nested as the engine, scheduler, executor and KV pool make them, as
-many per decode call at 4 rows as at 32, with the bytes each copy moved."""
+many per decode call at 4 rows as at 32, with the bytes each copy moved
+(ids and KV: the logits stay on the device)."""
 import time
 import types
 from collections import Counter
@@ -219,12 +220,14 @@ def test_records_per_decode_call_do_not_grow_with_rows():
     assert 10 <= len(few) <= 25, few
 
 
-def test_d2h_value_is_the_bytes_of_the_logits_and_kv(fresh):
+def test_d2h_value_is_the_bytes_of_the_ids_and_kv(fresh):
+    """The logits are sampled on the device: a decode row brings its int32
+    id (-1 for a row that is not all finite) and its new f32 KV."""
     eng = _engine()
     _serve(eng, 5, new_tokens=3)
     recs = obs.records()
     calls = [r for r in recs if r.name == "executor.decode"]
-    per_row = (CFG.vocab_size * 4  # f32 logits
+    per_row = (4  # int32 id
                + 2 * CFG.n_layers * CFG.n_kv_heads * CFG.head_dim * 4)  # f32 KV
     for c in calls:
         inside = [r for r in recs if c.start <= r.start and r.end <= c.end]
