@@ -53,8 +53,9 @@ def gaps(cfg: Dict, params: Dict, reqs: List[Dict], device,
          lowp: Optional[str] = None) -> List[float]:
     """Per sampled request, the widest gap below the reference's best of
     the served tokens (or, with `lowp`, of the control's first choices)."""
-    from esp_bench.reference.dense import logits_at
+    from esp_bench import lookup
 
+    logits_at = lookup.reference(cfg).logits_at
     out = []
     for d in reqs:
         served = list(d["served"])

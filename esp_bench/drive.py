@@ -12,11 +12,11 @@ clock from outside the program:
   * each output token is stamped when the executor call that computed it
     returns (``executor.prefill`` / ``executor.decode``, wrapped on the
     instance as `chip_smoke.py::_serve` does; both end in a device->host
-    copy of the logits).
+    copy of the ids sampled on the device and of the new KV).
 
 With ``spans=True`` (the traced run) the pool mirror's sync
 (``KVPool.device_kv``), the host pool's write of new KV (``KVPool.fill``)
-and the decode epilogue that copies logits and new KV to the host
+and the decode epilogue that copies the sampled ids and new KV to the host
 (``executor._emit_decoded``, device synchronized first so that it holds
 host work only) are wrapped too.
 """

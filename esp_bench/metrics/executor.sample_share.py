@@ -1,6 +1,7 @@
-"""Share of the window in host sampling, in %: the program's
-`executor.sample` spans (`repro_torch.obs`: the value guard and greedy
-sampling over each call's logits rows, and the new KV's stash)."""
+"""Share of the window in the executor's host epilogue, in %: the
+program's `executor.sample` spans (`repro_torch.obs`: the host's
+bookkeeping of the ids sampled on the device, one a row, with the value
+guard's quarantine, the tokens and the new KV's stash)."""
 from esp_bench.timeline import window
 
 

@@ -1,6 +1,7 @@
 """Share of the window the host spends in the KV pool: the mirror's sync
 (`KVPool.device_kv`), the host pool's write of new KV (`KVPool.fill`) and
-the decode epilogue's copy of logits and new KV to the host, in %."""
+the decode epilogue's copy of the sampled ids and the new KV to the host,
+in %."""
 
 NAMES = ("mirror_sync", "kv_fill_host", "emit_to_host")
 

@@ -11,6 +11,9 @@ rows, so a 64k-token prompt fits beside the weights on one card.  It
 imports nothing of the program and takes only the benchmark's own
 weights and token ids.
 
+``shapes(cfg)`` lists the family's weight tree, which
+`esp_bench/weights.py` draws for the port and for this reference alike.
+
 ``lowp="fp8"`` is the control: every product's operands (activations
 per row, weights per tensor) and the attention's q, k, v rounded to
 float8 e4m3 with a scale, the step below the served bf16.
@@ -18,7 +21,7 @@ float8 e4m3 with a scale, the step below the served bf16.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -101,6 +104,32 @@ def _attention(ops, q, k, v, q_block):
         o = (p @ vv[:, :qe]).view(kvh, g, n, d).permute(2, 0, 1, 3)
         out[qs:qe] = o.reshape(n, h * d)
     return out
+
+
+def shapes(cfg: dict) -> Tuple[List, List, List]:
+    """(weights, norms, biases): lists of (path, shape) of the tree."""
+    d, L, hd = cfg["d_model"], cfg["n_layers"], cfg["d_head"]
+    h, kvh, f, v = cfg["n_heads"], cfg["n_kv_heads"], cfg["d_ff"], cfg["vocab_size"]
+    w = [(("embed",), (v, d)), (("lm_head",), (d, v)),
+         (("layers", "attn", "wq"), (L, d, h, hd)),
+         (("layers", "attn", "wk"), (L, d, kvh, hd)),
+         (("layers", "attn", "wv"), (L, d, kvh, hd)),
+         (("layers", "attn", "wo"), (L, h, hd, d)),
+         (("layers", "ffn", "w_up"), (L, d, f)),
+         (("layers", "ffn", "w_down"), (L, f, d))]
+    if cfg["ffn_kind"] == "swiglu":
+        w.append((("layers", "ffn", "w_gate"), (L, d, f)))
+    n = [(("final_norm", "scale"), (d,)), (("layers", "norm1", "scale"), (L, d)),
+         (("layers", "norm2", "scale"), (L, d))]
+    b = []
+    if cfg.get("qkv_bias"):
+        b = [(("layers", "attn", "bq"), (L, h, hd)),
+             (("layers", "attn", "bk"), (L, kvh, hd)),
+             (("layers", "attn", "bv"), (L, kvh, hd))]
+    if cfg["norm_kind"] == "layernorm":
+        b += [(("final_norm", "bias"), (d,)), (("layers", "norm1", "bias"), (L, d)),
+              (("layers", "norm2", "bias"), (L, d))]
+    return w, n, b
 
 
 @torch.no_grad()

@@ -90,17 +90,25 @@ def reader(name: str):
 
 
 def rehearsal(cfg: dict, mix: dict):
-    """A tiny dense configuration and mix for a run on the CPU (width 2048,
-    so that the logits spread about as widely as at the cells' widths).
+    """A tiny configuration and mix for a run on the CPU (width 2048, so
+    that the logits spread about as widely as at the cells' widths): the
+    dense keys shrunk here, then the family's own (expert widths, state
+    sizes) by its reference module's ``rehearse(cfg) -> cfg`` where it
+    defines one.
 
     Its limit is set from its own readings, as a cell's is from the card:
     sound runs of the float32 program read a gap of 0.0 on 12 seeds, the
     float8 control 0.21-0.45 on 4 (the float8 gap grows with width and
     vocabulary, so it stays under the cells' limits at this size)."""
+    from esp_bench import lookup
+
     cfg = dict(cfg, n_layers=2, d_model=2048, n_heads=8,
                n_kv_heads=min(cfg["n_kv_heads"], 8), d_head=32, d_ff=512,
                vocab_size=512, dtype="float32", capacity_per_instance=2048,
                logit_gap_limit=0.05)
+    rehearse = getattr(lookup.reference(cfg), "rehearse", None)
+    if rehearse is not None:
+        cfg = rehearse(cfg)
     laws = [dict(law, prompt=dict(law["prompt"], median=24, lo=4, hi=96),
                  output=dict(lo=8, hi=20)) for law in mix["mix"]]
     mix = dict(mix, mix=laws, n=min(mix["n"], 600),

@@ -1,7 +1,9 @@
 """The weights of a run, drawn by the benchmark on the device from the
-seed, in the port's parameter layout for the dense family (key names and
-stacked ``[L, ...]`` leaves as `src/repro_torch/convert.py` documents
-them).  The same tensors go to the port and to the reference.
+seed, in the port's parameter layout (key names and stacked ``[L, ...]``
+leaves as `src/repro_torch/convert.py` documents them).  The leaves are
+those that the configuration's reference module lists in its
+``shapes(cfg)`` (`esp_bench/lookup.py`).  The same tensors go to the port
+and to the reference.
 
 Three draws in all, each one call over one flat buffer in the served
 type: every product weight (and the embedding) ~ N(0, 0.02); every norm
@@ -10,37 +12,13 @@ scale 1 + N(0, 0.1) (so that a norm applied wrongly shows); every bias
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict
 
 import torch
 
+from esp_bench import lookup
+
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-def shapes(cfg: dict) -> Tuple[List, List, List]:
-    """(weights, norms, biases): lists of (path, shape) of the tree."""
-    d, L, hd = cfg["d_model"], cfg["n_layers"], cfg["d_head"]
-    h, kvh, f, v = cfg["n_heads"], cfg["n_kv_heads"], cfg["d_ff"], cfg["vocab_size"]
-    w = [(("embed",), (v, d)), (("lm_head",), (d, v)),
-         (("layers", "attn", "wq"), (L, d, h, hd)),
-         (("layers", "attn", "wk"), (L, d, kvh, hd)),
-         (("layers", "attn", "wv"), (L, d, kvh, hd)),
-         (("layers", "attn", "wo"), (L, h, hd, d)),
-         (("layers", "ffn", "w_up"), (L, d, f)),
-         (("layers", "ffn", "w_down"), (L, f, d))]
-    if cfg["ffn_kind"] == "swiglu":
-        w.append((("layers", "ffn", "w_gate"), (L, d, f)))
-    n = [(("final_norm", "scale"), (d,)), (("layers", "norm1", "scale"), (L, d)),
-         (("layers", "norm2", "scale"), (L, d))]
-    b = []
-    if cfg.get("qkv_bias"):
-        b = [(("layers", "attn", "bq"), (L, h, hd)),
-             (("layers", "attn", "bk"), (L, kvh, hd)),
-             (("layers", "attn", "bv"), (L, kvh, hd))]
-    if cfg["norm_kind"] == "layernorm":
-        b += [(("final_norm", "bias"), (d,)), (("layers", "norm1", "bias"), (L, d)),
-              (("layers", "norm2", "bias"), (L, d))]
-    return w, n, b
 
 
 def _numel(shape) -> int:
@@ -55,7 +33,8 @@ def draw(cfg: dict, seed: int, device) -> Dict:
     dt = DTYPES[cfg["dtype"]]
     g = torch.Generator(device=device).manual_seed(int(seed) & 0xFFFFFFFFFFFF)
     tree: Dict = {}
-    for group, mean, std in zip(shapes(cfg), (0.0, 1.0, 0.0), (0.02, 0.1, 0.02)):
+    groups = lookup.reference(cfg).shapes(cfg)
+    for group, mean, std in zip(groups, (0.0, 1.0, 0.0), (0.02, 0.1, 0.02)):
         if not group:
             continue
         flat = torch.empty(sum(_numel(s) for _, s in group), dtype=dt,
